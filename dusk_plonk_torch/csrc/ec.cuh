@@ -1,0 +1,129 @@
+// Complete G1 addition on BLS12-381 (y^2 = x^3 + 4), Renes-Costello-Batina
+// 2015 algorithm 7 (a = 0), over Fq in Montgomery form (field.cuh).
+//
+// The formula order follows dusk_plonk_tpu/ops/ec.py::DeviceG1._add_xla and
+// _add_mixed_xla (ec.py:120-199) step for step, and the multiply by
+// b3 = 12 is the same chain of four modular adds (_mul12).  Every step
+// returns a canonical value, so the projective (X, Y, Z) this code returns
+// is the JAX package's, limb for limb.  Identity = (0, 1, 0).
+#pragma once
+
+#include "field.cuh"
+
+typedef uint32_t Fq[12];
+
+__device__ __forceinline__ void fq_mul(Fq& r, const Fq& a, const Fq& b) {
+  mont_mul<12>(r, a, b);
+}
+__device__ __forceinline__ void fq_add(Fq& r, const Fq& a, const Fq& b) {
+  add_mod<12>(r, a, b);
+}
+__device__ __forceinline__ void fq_sub(Fq& r, const Fq& a, const Fq& b) {
+  sub_mod<12>(r, a, b);
+}
+
+// 12 x = 8x + 4x via 4 modular adds (ec.py::DeviceG1._mul12)
+__device__ __forceinline__ void fq_mul12(Fq& r, const Fq& x) {
+  Fq x2, x4, x8;
+  fq_add(x2, x, x);
+  fq_add(x4, x2, x2);
+  fq_add(x8, x4, x4);
+  fq_add(r, x8, x4);
+}
+
+struct G1Proj {
+  Fq x, y, z;
+};
+
+__device__ __forceinline__ void g1_set_identity(G1Proj& p) {
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    p.x[i] = 0;
+    p.y[i] = FQ_ONE[i];
+    p.z[i] = 0;
+  }
+}
+
+// r = p + q, complete projective addition (ec.py:120-149).  r may alias p.
+__device__ __forceinline__ void g1_add(G1Proj& r, const G1Proj& p,
+                                       const G1Proj& q) {
+  Fq t0, t1, t2, t3, t4, x3, y3, z3, u, v;
+  fq_mul(t0, p.x, q.x);
+  fq_mul(t1, p.y, q.y);
+  fq_mul(t2, p.z, q.z);
+  fq_add(u, p.x, p.y);
+  fq_add(v, q.x, q.y);
+  fq_mul(t3, u, v);
+  fq_add(u, t0, t1);
+  fq_sub(t3, t3, u);               // x1y2 + x2y1
+  fq_add(u, p.y, p.z);
+  fq_add(v, q.y, q.z);
+  fq_mul(t4, u, v);
+  fq_add(u, t1, t2);
+  fq_sub(t4, t4, u);               // y1z2 + y2z1
+  fq_add(u, p.x, p.z);
+  fq_add(v, q.x, q.z);
+  fq_mul(x3, u, v);
+  fq_add(u, t0, t2);
+  fq_sub(y3, x3, u);               // x1z2 + x2z1
+  fq_add(x3, t0, t0);
+  fq_add(t0, x3, t0);              // 3 x1x2
+  fq_mul12(t2, t2);                // b3 z1z2
+  fq_add(z3, t1, t2);
+  fq_sub(t1, t1, t2);
+  fq_mul12(y3, y3);                // b3 (x1z2 + x2z1)
+  fq_mul(x3, t4, y3);
+  fq_mul(t2, t3, t1);
+  fq_sub(x3, t2, x3);
+  fq_mul(y3, y3, t0);
+  fq_mul(t1, t1, z3);
+  fq_add(y3, t1, y3);
+  fq_mul(t0, t0, t3);
+  fq_mul(z3, z3, t4);
+  fq_add(z3, z3, t0);
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    r.x[i] = x3[i];
+    r.y[i] = y3[i];
+    r.z[i] = z3[i];
+  }
+}
+
+// r = p + (x2, y2) with the second operand strictly affine (z2 = 1, never
+// the identity): the 11-multiply mixed form (ec.py:173-199).  r may alias p.
+__device__ __forceinline__ void g1_add_mixed(G1Proj& r, const G1Proj& p,
+                                             const Fq& x2, const Fq& y2) {
+  Fq t0, t1, t2, t3, t4, x3, y3, z3, u, v;
+  fq_mul(t0, p.x, x2);
+  fq_mul(t1, p.y, y2);
+  fq_add(u, p.x, p.y);
+  fq_add(v, x2, y2);
+  fq_mul(t3, u, v);
+  fq_add(u, t0, t1);
+  fq_sub(t3, t3, u);               // x1y2 + x2y1
+  fq_mul(u, y2, p.z);
+  fq_add(t4, p.y, u);              // y1 + y2 z1
+  fq_mul(u, x2, p.z);
+  fq_add(y3, p.x, u);              // x1 + x2 z1
+  fq_add(x3, t0, t0);
+  fq_add(t0, x3, t0);              // 3 x1x2
+  fq_mul12(t2, p.z);               // b3 z1
+  fq_add(z3, t1, t2);
+  fq_sub(t1, t1, t2);
+  fq_mul12(y3, y3);                // b3 (x1 + x2 z1)
+  fq_mul(x3, t4, y3);
+  fq_mul(t2, t3, t1);
+  fq_sub(x3, t2, x3);
+  fq_mul(y3, y3, t0);
+  fq_mul(t1, t1, z3);
+  fq_add(y3, t1, y3);
+  fq_mul(t0, t0, t3);
+  fq_mul(z3, z3, t4);
+  fq_add(z3, z3, t0);
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    r.x[i] = x3[i];
+    r.y[i] = y3[i];
+    r.z[i] = z3[i];
+  }
+}

@@ -1,0 +1,58 @@
+// K9: elementwise complete projective G1 addition over Fq limb planes.
+//
+// Replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::ec_add
+// (_ec_add_kernel), reached through ops/ec.py::DeviceG1.add.  In the MSM
+// (ops/msm.py) it carries the Hillis-Steele chunk offsets, the bucket-tail
+// reads, both bucket-sum levels as step loops and the NB * full_sum
+// doublings.
+//
+// Bound on the H100: integer ALU and registers.  One add is 12 Fq
+// Montgomery multiplies (144 32x32->64 multiply-adds each) and ~20 modular
+// adds against 432 bytes of traffic.  Design: one thread per lane, the
+// whole RCB15 formula in registers (ec.cuh); the formula keeps ten 12-word
+// Fq temporaries plus both operands live, so __launch_bounds__(128) lets
+// each thread hold up to 255 registers and ptxas spills as little as it
+// can.  Inputs are (rows, 24, n) planes; lane (r, j) reads limb l at
+// r * 24 n + l n + j, so neighbouring threads read neighbouring words.
+
+#include "ec.cuh"
+
+__global__ void __launch_bounds__(128)
+ec_add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+              const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
+              const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
+              uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+              uint32_t* __restrict__ oz, int64_t rows, int64_t n) {
+  int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * n) return;
+  int64_t r = idx / n;
+  int64_t j = idx - r * n;
+  int64_t off = r * 24 * n + j;
+  G1Proj p, q;
+  load_limbs<12>(p.x, px + off, n);
+  load_limbs<12>(p.y, py + off, n);
+  load_limbs<12>(p.z, pz + off, n);
+  load_limbs<12>(q.x, qx + off, n);
+  load_limbs<12>(q.y, qy + off, n);
+  load_limbs<12>(q.z, qz + off, n);
+  g1_add(p, p, q);
+  store_limbs<12>(ox + off, n, p.x);
+  store_limbs<12>(oy + off, n, p.y);
+  store_limbs<12>(oz + off, n, p.z);
+}
+
+extern "C" int dt_ec_add(const void* px, const void* py, const void* pz,
+                         const void* qx, const void* qy, const void* qz,
+                         void* ox, void* oy, void* oz, int64_t rows,
+                         int64_t n, void* stream) {
+  int64_t total = rows * n;
+  if (total > 0) {
+    int threads = 128;
+    int64_t blocks = (total + threads - 1) / threads;
+    ec_add_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz,
+        (const uint32_t*)qx, (const uint32_t*)qy, (const uint32_t*)qz,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, rows, n);
+  }
+  return (int)cudaGetLastError();
+}

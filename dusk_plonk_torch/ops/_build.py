@@ -1,0 +1,104 @@
+"""Build the CUDA kernels and bind them with ctypes.
+
+`nvcc` compiles every `dusk_plonk_torch/csrc/*.cu` for sm_90a into one
+shared library with a plain C interface, under `build/torch_kernels/` at the
+repository root (listed in .gitignore).  The build runs at first use, and
+again whenever a source is newer than the library.  Nothing here includes
+PyTorch's headers, so a cold build takes seconds, not minutes.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+LIB_PATH = os.path.join(BUILD_DIR, "libdusk_torch_kernels.so")
+BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+
+# name -> argtypes of every C entry point (csrc/*.cu)
+_SIGNATURES = {
+    "dt_mont_mul": [_I, _P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
+                    _P, _I64, _I64, _P],
+    "dt_ntt_stage": [_P, _P, _P, _I64, _I, _I, _P],
+    "dt_ec_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+    "dt_ec_scan_mixed": [_P, _P, _P, _P, _I, _I64, _P],
+}
+
+_lib = None
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    deps = sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(p) > built for p in deps)
+
+
+def build() -> None:
+    """Compile csrc/*.cu into LIB_PATH (compiler output in BUILD_LOG).
+    Raises with the compiler's errors if the build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + sources()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    with open(BUILD_LOG, "w") as f:
+        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {res.returncode}):\n{res.stderr[-8000:]}")
+    os.replace(tmp, LIB_PATH)     # atomic: concurrent builders never see half
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib
+    if _lib is None:
+        if _stale():
+            build()
+        handle = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.dt_error_string.argtypes = [ctypes.c_int]
+        handle.dt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().dt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({rc})")

@@ -1,0 +1,182 @@
+"""G1 point arithmetic (BLS12-381, y^2 = x^3 + 4) over Fq limb tensors.
+
+Counterpart of dusk_plonk_tpu/ops/ec.py.  Points are tuples (X, Y, Z) of
+(..., 24, N) int32 Montgomery limb tensors; identity = (0, 1, 0).  Addition
+is the complete RCB15 formula (a = 0), in the JAX package's step order, so
+raw projective outputs agree limb for limb.  `add` is kernel K9
+(ops/kernels.py::ec_add); `add_mixed` stays plain torch over the K1 mul
+(the MSM's mixed adds all run inside kernel K11a).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from dusk_plonk_tpu.curves.bls import G1_GENERATOR
+
+from . import kernels
+from .limb import fq_field, int_to_limbs
+
+
+class DeviceG1:
+    def __init__(self):
+        self.F = fq_field()
+        spec = self.F.spec
+
+        def mont(v):
+            return int_to_limbs(spec, v * spec.mont_r % spec.modulus)[:, None]
+        self._np_identity = (mont(0), mont(1), mont(0))        # (24, 1) each
+        # affine generator: the scalar-0 pad point of MSM inputs, which
+        # must stay strictly affine (the mixed-add scan)
+        self._np_generator = (mont(G1_GENERATOR[0]), mont(G1_GENERATOR[1]))
+        self._dev: dict = {}
+
+    def _const(self, name, device):
+        key = (name, str(device))
+        t = self._dev.get(key)
+        if t is None:
+            src = getattr(self, "_np_" + name)
+            t = tuple(torch.from_numpy(c.copy()).to(device) for c in src)
+            self._dev[key] = t
+        return t
+
+    def identity(self, device):
+        """Identity as ((24, 1),)*3."""
+        return self._const("identity", device)
+
+    def generator_affine(self, device):
+        """Affine generator as ((24, 1),)*2, Montgomery."""
+        return self._const("generator", device)
+
+    # -- host <-> device ------------------------------------------------------
+
+    def pack_points(self, affine_points, device):
+        """[(x, y) | None] -> ((24, N),)*3 projective Montgomery."""
+        xs, ys, zs = [], [], []
+        for p in affine_points:
+            if p is None:
+                xs.append(0); ys.append(1); zs.append(0)
+            else:
+                xs.append(p[0]); ys.append(p[1]); zs.append(1)
+        F = self.F
+        return (F.pack(xs, device), F.pack(ys, device), F.pack(zs, device))
+
+    def to_affine(self, pts):
+        """Projective ((24, N),)*3 -> [(x, y) | None]: one batched Fermat
+        inverse of Z on the device, then one fetch."""
+        F = self.F
+        X, Y, Z = pts
+        zinv = F.inv(Z)                                      # 0 stays 0
+        ax = F.unpack(F.mul(X, zinv))
+        ay = F.unpack(F.mul(Y, zinv))
+        inf = (Z == 0).all(dim=-2).reshape(-1).tolist()
+        return [None if i else (x, y) for x, y, i in zip(ax, ay, inf)]
+
+    # -- complete addition (RCB15 alg. 7, a = 0) ------------------------------------
+
+    @staticmethod
+    def _mul12(F, x):
+        """12 x = 8x + 4x via 4 modular adds (b3 = 12)."""
+        x2 = F.add(x, x)
+        x4 = F.add(x2, x2)
+        x8 = F.add(x4, x4)
+        return F.add(x8, x4)
+
+    def add(self, p, q):
+        """Complete addition, kernel K9 (operands broadcast to one shape)."""
+        shape = torch.broadcast_shapes(*(c.shape for c in p + q))
+        p = tuple(c.expand(shape).contiguous() for c in p)
+        q = tuple(c.expand(shape).contiguous() for c in q)
+        return kernels.ec_add(self, p, q)
+
+    def add_formula(self, p, q, mul):
+        """RCB15 complete addition with the given field multiply
+        (dusk_plonk_tpu/ops/ec.py::DeviceG1._add_xla, step for step)."""
+        F = self.F
+        x1, y1, z1 = p
+        x2, y2, z2 = q
+        t0 = mul(x1, x2)
+        t1 = mul(y1, y2)
+        t2 = mul(z1, z2)
+        t3 = mul(F.add(x1, y1), F.add(x2, y2))
+        t3 = F.sub(t3, F.add(t0, t1))              # x1y2 + x2y1
+        t4 = mul(F.add(y1, z1), F.add(y2, z2))
+        t4 = F.sub(t4, F.add(t1, t2))              # y1z2 + y2z1
+        x3 = mul(F.add(x1, z1), F.add(x2, z2))
+        y3 = F.sub(x3, F.add(t0, t2))              # x1z2 + x2z1
+        x3 = F.add(t0, t0)
+        t0 = F.add(x3, t0)                         # 3 x1x2
+        t2 = self._mul12(F, t2)                    # b3 z1z2
+        z3 = F.add(t1, t2)
+        t1 = F.sub(t1, t2)
+        y3 = self._mul12(F, y3)                    # b3 (x1z2 + x2z1)
+        x3 = mul(t4, y3)
+        t2 = mul(t3, t1)
+        x3 = F.sub(t2, x3)
+        y3 = mul(y3, t0)
+        t1 = mul(t1, z3)
+        y3 = F.add(t1, y3)
+        t0 = mul(t0, t3)
+        z3 = mul(z3, t4)
+        z3 = F.add(z3, t0)
+        return (x3, y3, z3)
+
+    def add_mixed(self, p, q2):
+        """p + (x2, y2) with q strictly affine (z2 = 1, never the identity);
+        plain torch over the K1 mul."""
+        return self.add_mixed_formula(p, q2, self.F.mul)
+
+    def add_mixed_formula(self, p, q2, mul):
+        """RCB15 mixed addition, 11 multiplies
+        (dusk_plonk_tpu/ops/ec.py::DeviceG1._add_mixed_xla, step for step)."""
+        F = self.F
+        x1, y1, z1 = p
+        x2, y2 = q2
+        t0 = mul(x1, x2)
+        t1 = mul(y1, y2)
+        t3 = mul(F.add(x1, y1), F.add(x2, y2))
+        t3 = F.sub(t3, F.add(t0, t1))              # x1y2 + x2y1
+        t4 = F.add(y1, mul(y2, z1))                # y1 + y2 z1
+        y3 = F.add(x1, mul(x2, z1))                # x1 + x2 z1
+        x3 = F.add(t0, t0)
+        t0 = F.add(x3, t0)                         # 3 x1x2
+        t2 = self._mul12(F, z1)                    # b3 z1
+        z3 = F.add(t1, t2)
+        t1 = F.sub(t1, t2)
+        y3 = self._mul12(F, y3)                    # b3 (x1 + x2 z1)
+        x3 = mul(t4, y3)
+        t2 = mul(t3, t1)
+        x3 = F.sub(t2, x3)
+        y3 = mul(y3, t0)
+        t1 = mul(t1, z3)
+        y3 = F.add(t1, y3)
+        t0 = mul(t0, t3)
+        z3 = mul(z3, t4)
+        z3 = F.add(z3, t0)
+        return (x3, y3, z3)
+
+    def scan_mixed(self, g):
+        """g (cl, 48, lanes) affine steps -> per-lane inclusive prefix sums
+        ((cl, 24, lanes),)*3 from the identity, kernel K11a."""
+        return kernels.ec_scan_mixed(self, g)
+
+    def neg(self, p):
+        x, y, z = p
+        return (x, self.F.neg(y), z)
+
+    def select(self, cond, p, q):
+        """cond (..., N) bool -> p or q, per lane."""
+        F = self.F
+        return tuple(F.select(cond, a, b) for a, b in zip(p, q))
+
+    def broadcast_identity(self, batch_shape, n: int, device):
+        """Identity as (batch_shape..., 24, n) contiguous components."""
+        return tuple(c.expand(tuple(batch_shape) + (self.F.L, n)).contiguous()
+                     for c in self.identity(device))
+
+
+@lru_cache(maxsize=None)
+def device_g1() -> DeviceG1:
+    return DeviceG1()

@@ -1,0 +1,288 @@
+"""The port's four hand-written CUDA kernels, each with its plain PyTorch
+version and a launch counter.
+
+| wrapper         | kernel (csrc/)      | replaces (dusk_plonk_tpu/ops/)          |
+|-----------------|---------------------|-----------------------------------------|
+| mont_mul        | K1  mont_mul.cu     | pallas_field.py::mont_mul               |
+| ntt_ladder      | K2  ntt.cu          | pallas_field.py::ntt_ladder             |
+| ec_add          | K9  ec_add.cu       | pallas_field.py::ec_add                 |
+| ec_scan_mixed   | K11a ec_scan.cu     | pallas_field.py::ec_scan_mixed          |
+
+Rules every wrapper keeps: on CPU tensors it runs the plain version; on
+CUDA tensors it launches its kernel or raises (there is no fallback).  It
+checks dtype, shape and contiguity, allocates outputs with torch.empty,
+launches on torch.cuda.current_stream(), and adds one to its `launches`
+count at each kernel launch and nowhere else.  The `*_plain` functions run
+on any device and never launch a kernel: the CPU path and the on-card
+comparisons use them.
+
+Field and point arguments are the objects of ops/limb.py (`F`, a
+LimbField) and ops/ec.py (`G1`, a DeviceG1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from functools import lru_cache
+
+import torch
+
+from . import _build
+
+MASK16 = 0xFFFF
+
+
+def _is_cpu(*ts) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"operands on mixed devices: {sorted(devs)}")
+    return False
+
+
+def _check_int32(*ts):
+    for t in ts:
+        if t.dtype != torch.int32:
+            raise TypeError(f"limb tensors must be int32, got {t.dtype}")
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def reset_launches() -> None:
+    for fn in (mont_mul, ntt_ladder, ec_add, ec_scan_mixed):
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches
+            for fn in (mont_mul, ntt_ladder, ec_add, ec_scan_mixed)}
+
+
+# -- carries of 16-bit limb rows (shared by every plain version) ------------------
+
+@lru_cache(maxsize=None)
+def _row_bits(K: int, device: str):
+    return torch.arange(K, dtype=torch.int64, device=device)[:, None]
+
+
+def resolve_carries(s):
+    """Carry resolution of limb rows each < 2^17 (axis -2) -> (16-bit
+    limbs, carry out of the top row).  The generate / propagate flags of
+    the K <= 62 rows pack into the bits of one int64 per element, and one
+    integer addition resolves the whole chain: the result of the JAX
+    package's Kogge-Stone ladder in a constant number of tensor ops."""
+    K = s.shape[-2]
+    sh = _row_bits(K, str(s.device))
+    g = ((s >> 16).long() << sh).sum(dim=-2)
+    p = (((s & MASK16) == MASK16).long() << sh).sum(dim=-2)
+    b = g | p
+    c = (g + b) ^ g ^ b                  # bit i: carry into row i
+    cin = (c.unsqueeze(-2) >> sh) & 1
+    return (s + cin.to(s.dtype)) & MASK16, ((c >> K) & 1) != 0
+
+
+def fold(t):
+    """Move each row's bits above 16 one row up (value kept mod
+    2^(16 rows))."""
+    out = t & MASK16
+    out[..., 1:, :] += (t >> 16)[..., :-1, :]
+    return out
+
+
+def carry(t):
+    """Lazy rows (< 2^22) -> 16-bit limbs, mod 2^(16 rows)."""
+    return resolve_carries(fold(t))[0]
+
+
+# -- K1: Montgomery multiply ------------------------------------------------------
+
+def _antidiag(p):
+    """p (..., L, L, N) with p[..., i, j, :] = a_i b_j -> (..., 2L+1, N)
+    column sums over i + j = k (pad-reshape binning, as LimbField.
+    _antidiag_sums)."""
+    L = p.shape[-3]
+    n = p.shape[-1]
+    lead = p.shape[:-3]
+    padded = torch.nn.functional.pad(p, (0, 0, 0, L + 2))
+    flat = padded.reshape(lead + (L * (2 * L + 2), n))
+    w = 2 * L + 1
+    return flat[..., :L * w, :].reshape(lead + (L, w, n)).sum(dim=-3)
+
+
+def _const_columns(F, name, x):
+    """Product columns of int64 limbs x (..., L, N) times the constant
+    `name` of F, as one float64 matmul with the constant's (2L+1, L)
+    Toeplitz matrix: every product and column sum is an integer below
+    2^38, so float64 holds it exactly."""
+    return torch.matmul(F.toeplitz(name, x.device), x.double()).long()
+
+
+def _normalize(t):
+    """int64 rows < 2^38 -> 16-bit limbs mod 2^(16 rows): two folds bring
+    every row under 2^17, then one carry resolution."""
+    return resolve_carries(fold(fold(t)))[0]
+
+
+def mont_mul_plain(F, a, b):
+    """K1's plain version: LimbField._mul_xla's separated Montgomery
+    product T = ab; m = (T mod R) N' mod R; (T + mN) / R, then one
+    conditional subtraction.  Computes in int64; returns int32."""
+    L = F.L
+    a, b = torch.broadcast_tensors(a.long(), b.long())
+    t = _normalize(_antidiag(a[..., :, None, :] * b[..., None, :, :]))
+    m = _normalize(_const_columns(F, "nprime", t[..., :L, :])[..., :L, :])
+    full = _normalize(t + _const_columns(F, "mod", m))
+    return F._cond_sub_mod(full[..., L:2 * L, :]).to(torch.int32)
+
+
+def _row_strides(t, shape):
+    """Broadcast `t` to `shape` (..., L, N) and return (tensor, (row, limb,
+    elem) element strides) with all leading axes folded into one row
+    axis; a tensor whose leading axes cannot fold is copied."""
+    e = t.expand(shape)
+    lead = [(sz, st) for sz, st in zip(shape[:-2], e.stride()[:-2])
+            if sz != 1]
+    foldable = all(st0 == st1 * sz1
+                   for (_, st0), (sz1, st1) in zip(lead, lead[1:]))
+    if not foldable:
+        e = e.contiguous()
+        lead = [(sz, st) for sz, st in zip(shape[:-2], e.stride()[:-2])
+                if sz != 1]
+    row = lead[-1][1] if lead else 0
+    return e, (row, e.stride()[-2], e.stride()[-1])
+
+
+def mont_mul(F, a, b):
+    """a * b * R^-1 mod p on (..., L, N) limb tensors; broadcasts."""
+    if _is_cpu(a, b):
+        return mont_mul_plain(F, a, b)
+    _check_int32(a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if len(shape) < 2 or shape[-2] != F.L:
+        raise ValueError(f"mont_mul: limb axis must be {F.L}, got {shape}")
+    rows = math.prod(shape[:-2])
+    n = shape[-1]
+    ea, sa = _row_strides(a, shape)
+    eb, sb = _row_strides(b, shape)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    rc = _build.lib().dt_mont_mul(F.L, _ptr(ea), *sa, _ptr(eb), *sb,
+                                  _ptr(out), rows, n, _stream())
+    mont_mul.launches += 1
+    _build.check(rc, "mont_mul")
+    return out
+
+
+# -- K2: NTT butterfly stages -------------------------------------------------------
+
+def ntt_ladder_plain(F, x, tw, k: int):
+    """K2's plain version: the k DIT stages of NttPlan._transform
+    (ntt.py:185-206) on bit-reversed (..., 16, n) input; tw (16, n/2)."""
+    n = 1 << k
+    j = torch.arange(n, device=x.device)
+    for s in range(k):
+        half = 1 << s
+        tw_vec = tw[:, (j & (half - 1)) << (k - 1 - s)]     # (16, n)
+        t = mont_mul_plain(F, x, tw_vec)
+        tr = torch.roll(t, -half, dims=-1)                  # t[j + half]
+        xl = torch.roll(x, half, dims=-1)                   # x[j - half]
+        x = F.select((j & half) == 0, F.add(x, tr), F.sub(xl, t))
+    return x
+
+
+def ntt_ladder(F, x, tw, k: int):
+    """All k butterfly stages on bit-reversed (..., 16, 2^k) Fr limbs with
+    the (16, 2^(k-1)) stage-root power table `tw`: one K2 launch per
+    stage."""
+    if _is_cpu(x, tw):
+        return ntt_ladder_plain(F, x, tw, k)
+    _check_int32(x, tw)
+    n = 1 << k
+    if x.shape[-2:] != (16, n) or tw.shape != (16, n // 2):
+        raise ValueError(f"ntt_ladder: bad shapes {x.shape}, {tw.shape}")
+    if not tw.is_contiguous():
+        raise ValueError("ntt_ladder: twiddle table must be contiguous")
+    src = x.reshape(-1, 16, n).contiguous()
+    batch = src.shape[0]
+    bufs = (torch.empty_like(src), torch.empty_like(src))
+    lib = _build.lib()
+    for s in range(k):
+        dst = bufs[s % 2]
+        rc = lib.dt_ntt_stage(_ptr(src), _ptr(dst), _ptr(tw), batch, k, s,
+                              _stream())
+        ntt_ladder.launches += 1
+        _build.check(rc, "ntt_stage")
+        src = dst
+    return src.reshape(x.shape)
+
+
+# -- K9: complete projective G1 addition ------------------------------------------------
+
+def ec_add_plain(G1, p, q):
+    """K9's plain version: DeviceG1's RCB15 formula with K1's plain mul."""
+    return G1.add_formula(p, q, G1.F.mul_plain)
+
+
+def ec_add(G1, p, q):
+    """p + q on ((..., 24, N),)*3 projective Montgomery points of one
+    shape."""
+    if _is_cpu(*p, *q):
+        return ec_add_plain(G1, p, q)
+    _check_int32(*p, *q)
+    shape = p[0].shape
+    if len(shape) < 2 or shape[-2] != 24:
+        raise ValueError(f"ec_add: expected (..., 24, N), got {shape}")
+    for c in p + q:
+        if c.shape != shape or not c.is_contiguous():
+            raise ValueError("ec_add: operands must be contiguous, one shape")
+    rows = math.prod(shape[:-2])
+    out = tuple(torch.empty_like(p[0]) for _ in range(3))
+    rc = _build.lib().dt_ec_add(*(_ptr(c) for c in p + q + out), rows,
+                                shape[-1], _stream())
+    ec_add.launches += 1
+    _build.check(rc, "ec_add")
+    return out
+
+
+# -- K11a: mixed-add prefix scan -------------------------------------------------------
+
+def ec_scan_mixed_plain(G1, g):
+    """K11a's plain version: a step loop of the RCB15 mixed add with K1's
+    plain mul, from the identity."""
+    cl, _, lanes = g.shape
+    acc = G1.broadcast_identity((), lanes, g.device)
+    outs = []
+    for s in range(cl):
+        acc = G1.add_mixed_formula(acc, (g[s, :24], g[s, 24:]),
+                                   G1.F.mul_plain)
+        outs.append(acc)
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+def ec_scan_mixed(G1, g):
+    """g (cl, 48, lanes): per step the affine (x, y) added on each lane ->
+    the inclusive prefix sums ((cl, 24, lanes),)*3 from the identity."""
+    if _is_cpu(g):
+        return ec_scan_mixed_plain(G1, g)
+    _check_int32(g)
+    if g.dim() != 3 or g.shape[1] != 48 or not g.is_contiguous():
+        raise ValueError(f"ec_scan_mixed: expected contiguous (cl, 48, "
+                         f"lanes), got {tuple(g.shape)}")
+    cl, _, lanes = g.shape
+    out = tuple(torch.empty((cl, 24, lanes), dtype=torch.int32,
+                            device=g.device) for _ in range(3))
+    rc = _build.lib().dt_ec_scan_mixed(_ptr(g), *(_ptr(c) for c in out),
+                                       cl, lanes, _stream())
+    ec_scan_mixed.launches += 1
+    _build.check(rc, "ec_scan_mixed")
+    return out
+
+
+reset_launches()

@@ -1,0 +1,223 @@
+"""Pippenger multi-scalar multiplication (the KZG commit engine).
+
+Counterpart of dusk_plonk_tpu/ops/msm.py in its 16-bit configuration
+(`ec_limb14=False`), with both bucket-sum levels as step loops:
+
+  1. signed c-bit window digits, |d| <= 2^(c-1), from the scalar limbs;
+  2. per (commit, window) row, ONE torch.sort of an int64 key that packs
+     (|digit|, sign, index): equal digits become contiguous runs;
+  3. a gather from the element-major point table (row i = (x_i, y_i), row
+     n_pad + i = (x_i, -y_i): the digit sign folds into the index) into
+     (cl, 48, lanes), then kernel K11a: a chunked inclusive prefix scan of
+     mixed additions, one lane per (row, chunk);
+  4. chunk offsets by a Hillis-Steele exclusive scan on kernel K9;
+  5. the telescoped bucket reduction
+       sum_d d B_d = NB P(N-1) - sum_{d<NB} P(t_d),
+     with t_d from torch.searchsorted, the prefix reads P(t) = scan value +
+     chunk offset on K9, both bucket-sum levels as step loops of K9 and
+     the NB * full_sum doublings on K9;
+  6. the window combine on the host in C++ (native.g1_combine_windows),
+     as the JAX prover does.
+
+The commit batch B rides in the row axis (B * W rows), so every kernel
+launch covers all commits of a batch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dusk_plonk_tpu import native
+
+from ..utils.config import get_config
+from .ec import device_g1
+from .limb import fq_field
+
+MAX_WINDOW_BITS = 13
+
+
+def pick_window_bits(n: int) -> int:
+    """c ~ log2(n) - 4, clamped (ops/msm.py::pick_window_bits)."""
+    return max(2, min(MAX_WINDOW_BITS, n.bit_length() - 4))
+
+
+def require_host_combine() -> None:
+    """Raise unless the C++ window combine (native/) is built."""
+    if not native.has_combine_windows():
+        raise RuntimeError("native.g1_combine_windows is unavailable: "
+                           "build native/ (make -C native)")
+
+
+class MsmPlan:
+    """MSM over a fixed point count n (the points are an input)."""
+
+    def __init__(self, n: int, window_bits: int | None = None):
+        self.n = n
+        self.G1 = device_g1()
+        self.Fq = fq_field()
+        cfg = get_config()
+        c = window_bits if window_bits is not None else \
+            (cfg.msm_window_bits or pick_window_bits(n))
+        if not 2 <= c <= 16:
+            raise ValueError(f"msm window_bits must be in [2, 16], got {c}")
+        self.window_bits = c
+        # ceil(257 / c) windows: the top window absorbs the signed-digit
+        # carry, since scalars are < 2^255
+        self.num_windows = -(-257 // c)
+        self.nb = 1 << (c - 1)
+        self.chunk_len = min(cfg.msm_chunk_len, n)
+        # pad to a chunk multiple: zero scalars sort into bucket 0, which
+        # the reduction never reads
+        self.n_pad = -(-n // self.chunk_len) * self.chunk_len
+
+    # -- digits --------------------------------------------------------------
+
+    def _digits(self, limbs):
+        """(B, 16, N) canonical 16-bit limbs -> (B, W, N) int64 signed
+        digits with scalar = sum_w d_w 2^(c w).  int64 throughout:
+        limb << (16 - s) overflows int32."""
+        wb = self.window_bits
+        x = limbs.long()
+        mask = (1 << wb) - 1
+        raw = []
+        for w in range(self.num_windows):
+            o = wb * w
+            i, s = o >> 4, o & 15
+            if i >= 16:
+                raw.append(torch.zeros_like(x[:, 0]))
+                continue
+            d = x[:, i] >> s
+            if s + wb > 16 and i + 1 < 16:
+                d = d | (x[:, i + 1] << (16 - s))
+            raw.append(d & mask)
+        half = 1 << (wb - 1)
+        out = []
+        carry = torch.zeros_like(raw[0])
+        for w in range(self.num_windows):
+            t = raw[w] + carry
+            neg = t >= half
+            out.append(torch.where(neg, t - 2 * half, t))
+            carry = neg.long()
+        return torch.stack(out, dim=1)
+
+    # -- element-major point table -------------------------------------------
+
+    def prepare_points(self, points):
+        """((24, n),)*3 affine points (z = 1) -> the (2 n_pad, 48)
+        element-major table: row i = (x_i, y_i), row n_pad + i =
+        (x_i, -y_i); pads are the affine generator (scalar 0)."""
+        px, py, _ = points
+        if self.n_pad != self.n:
+            gx, gy = self.G1.generator_affine(px.device)
+            pad = self.n_pad - self.n
+            px = torch.cat([px, gx.expand(24, pad)], dim=-1)
+            py = torch.cat([py, gy.expand(24, pad)], dim=-1)
+        em = torch.cat([torch.cat([px, py], dim=0),
+                        torch.cat([px, self.Fq.neg(py)], dim=0)], dim=-1)
+        return em.T.contiguous()
+
+    # -- window totals -----------------------------------------------------------
+
+    def _window_totals(self, em, digits):
+        """digits (R, N) signed (R = commits x windows) -> per-row window
+        totals ((24, R),)*3, projective Montgomery."""
+        G1 = self.G1
+        dev = digits.device
+        R, n = digits.shape
+        cl = self.chunk_len
+        nc = n // cl
+        lanes = R * nc
+
+        shift = (n - 1).bit_length()
+        key = (digits.abs() << (shift + 1)) | ((digits < 0).long() << shift) \
+            | torch.arange(n, device=dev)
+        skey = torch.sort(key, dim=-1).values
+        order = skey & ((1 << shift) - 1)
+        ssign = (skey >> shift) & 1
+        sd = (skey >> (shift + 1)).contiguous()                # sorted |d|
+
+        g = em[order + n * ssign]                              # (R, N, 48)
+        g = g.reshape(R, nc, cl, 48).permute(2, 3, 0, 1).reshape(
+            cl, 48, lanes).contiguous()
+        ps = G1.scan_mixed(g)                                  # K11a
+
+        # chunk offsets: exclusive prefix of the chunk totals of each row,
+        # Hillis-Steele over the whole lane grid (roll spill-over across
+        # rows lands only on lanes with pos < shift, kept by the mask)
+        if nc == 1:
+            offsets = G1.broadcast_identity((), lanes, dev)
+        else:
+            pos = torch.arange(lanes, device=dev) % nc
+            ident = G1.broadcast_identity((), lanes, dev)
+            last = tuple(torch.roll(c[-1], 1, dims=-1) for c in ps)
+            offsets = G1.select(pos == 0, ident, last)
+            for i in range((nc - 1).bit_length()):
+                sh = 1 << i
+                rolled = tuple(torch.roll(c, sh, dims=-1) for c in offsets)
+                offsets = G1.select(pos >= sh, G1.add(offsets, rolled),
+                                    offsets)
+
+        # bucket tails t_d = last sorted index with |digit| <= d, and the
+        # full-sum index n - 1, read as scan value + chunk offset (K9)
+        NB = self.nb
+        buckets = torch.arange(NB, device=dev).expand(R, NB).contiguous()
+        tails = torch.searchsorted(sd, buckets, right=True) - 1
+        idx = torch.cat([tails, torch.full((R, 1), n - 1, device=dev,
+                                           dtype=torch.long)], dim=-1)
+        M = NB + 1
+        neg = (idx < 0).reshape(-1)
+        safe = idx.clamp(min=0)
+        pi = (safe % cl).reshape(-1)
+        lane = (torch.arange(R, device=dev)[:, None] * nc
+                + safe // cl).reshape(-1)
+        vals = tuple(c[pi, :, lane].T.contiguous() for c in ps)
+        offs = tuple(c[:, lane].contiguous() for c in offsets)
+        pts = G1.select(neg, G1.broadcast_identity((), R * M, dev),
+                        G1.add(vals, offs))                    # (24, R*M)
+        grid = tuple(c.reshape(24, R, M) for c in pts)
+        full_sum = tuple(c[..., NB].contiguous() for c in grid)   # (24, R)
+
+        # two-level sum over the NB bucket tails, each level a step loop
+        sa = 1 << ((self.window_bits - 1) // 2)
+        sb = NB // sa
+        lvl1 = tuple(c[..., :NB].reshape(24, R, sa, sb).permute(3, 0, 1, 2)
+                     .reshape(sb, 24, R * sa) for c in grid)
+        acc = G1.broadcast_identity((), R * sa, dev)
+        for s in range(sb):
+            acc = G1.add(acc, tuple(c[s] for c in lvl1))
+        lvl2 = tuple(c.reshape(24, R, sa).permute(2, 0, 1) for c in acc)
+        cur = G1.broadcast_identity((), R, dev)
+        for s in range(sa):
+            cur = G1.add(cur, tuple(c[s] for c in lvl2))
+
+        # total = NB * full_sum - sum_d P(t_d)
+        acc_nb = full_sum
+        for _ in range(NB.bit_length() - 1):
+            acc_nb = G1.add(acc_nb, acc_nb)
+        return G1.add(acc_nb, G1.neg(cur))
+
+    # -- public ------------------------------------------------------------------
+
+    def window_totals(self, em, limbs_stack):
+        """limbs_stack (B, 16, n) canonical -> LSB-first window totals,
+        ((B, W, 24),)*3 projective Montgomery."""
+        B = limbs_stack.shape[0]
+        if self.n_pad != self.n:
+            limbs_stack = torch.nn.functional.pad(
+                limbs_stack, (0, self.n_pad - self.n))
+        digits = self._digits(limbs_stack)                     # (B, W, N)
+        W = self.num_windows
+        tot = self._window_totals(em, digits.reshape(B * W, self.n_pad))
+        return tuple(c.T.reshape(B, W, 24) for c in tot)
+
+    def msm_affine_batch(self, em, limbs_stack):
+        """em: a prepare_points table; limbs_stack (B, 16, n) canonical
+        scalar limbs.  Returns B affine host points ((x, y) or None)."""
+        require_host_combine()
+        B = limbs_stack.shape[0]
+        tot = self.window_totals(em, limbs_stack)
+        arrs = [c.cpu().numpy().astype("<u2") for c in tot]    # (B, W, 24)
+        buf = np.stack(arrs, axis=2)                           # (B, W, 3, 24)
+        return native.g1_combine_windows(
+            buf.tobytes(), B, self.num_windows, self.window_bits)
