@@ -1,10 +1,11 @@
 // K9: elementwise complete projective G1 addition over Fq limb planes.
 //
 // Replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::ec_add
-// (_ec_add_kernel), reached through ops/ec.py::DeviceG1.add.  In the MSM
-// (ops/msm.py) it carries the Hillis-Steele chunk offsets, the bucket-tail
-// reads, both bucket-sum levels as step loops and the NB * full_sum
-// doublings.
+// (_ec_add_kernel), reached through ops/ec.py::DeviceG1.add, and its 14-bit
+// twin ::ec_add14 (_ec_add14_kernel; the R = 2^392 engine was a TPU
+// workaround and gives the same group elements).  In the MSM (ops/msm.py)
+// it reads the bucket tails, scan value + chunk offset; in
+// kzg/srs.py::PlonkParams.setup_device it sums the 32 window gathers.
 //
 // Bound on the H100: integer ALU and registers.  One add is 12 Fq
 // Montgomery multiplies (144 32x32->64 multiply-adds each) and ~20 modular

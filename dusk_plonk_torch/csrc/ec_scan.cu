@@ -1,8 +1,10 @@
 // K11a: per-lane inclusive prefix scan of complete mixed G1 additions.
 //
 // Replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::ec_scan_mixed
-// (_ec_scan_mixed_kernel), the 16-bit chunk scan of the Pippenger MSM
-// (ops/msm.py::MsmPlan._window_group_totals with ec_limb14=False).
+// (_ec_scan_mixed_kernel), the 16-bit chunk scan of the Pippenger MSM, and
+// its 14-bit twin ::ec_scan_mixed14 (_ec_scan_mixed14_kernel) of the
+// default configuration (ops/msm.py::MsmPlan._window_group_totals); the
+// group elements are the same.
 //
 // Input g is (cl, 48, lanes): for step s, rows 0..23 hold the affine x and
 // rows 24..47 the affine y of the point added on each lane.  Output is

@@ -1,7 +1,8 @@
 """Build the CUDA kernels and bind them with ctypes.
 
-`nvcc` compiles every `dusk_plonk_torch/csrc/*.cu` for sm_90a into one
-shared library with a plain C interface, under `build/torch_kernels/` at the
+`nvcc` compiles every `dusk_plonk_torch/csrc/*.cu` for sm_90a, one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface, under `build/torch_kernels/` at the
 repository root (listed in .gitignore).  The build runs at first use, and
 again whenever a source is newer than the library.  Nothing here includes
 PyTorch's headers, so a cold build takes seconds, not minutes.
@@ -25,7 +26,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libdusk_torch_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "dt_ntt_stage": [_P, _P, _P, _I64, _I, _I, _P],
     "dt_ec_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "dt_ec_scan_mixed": [_P, _P, _P, _P, _I, _I64, _P],
+    "dt_ec_sum_steps": [_P] * 6 + [_I, _I64, _P],
+    "dt_ec_scan_excl": [_P] * 6 + [_I, _I64, _P],
+    "dt_ec_double_add": [_P] * 9 + [_I, _I64, _P],
+    "dt_ec_combine": [_P] * 6 + [_I, _I, _I64, _P],
 }
 
 _lib = None
@@ -67,17 +72,41 @@ def _stale() -> bool:
 
 
 def build() -> None:
-    """Compile csrc/*.cu into LIB_PATH (compiler output in BUILD_LOG).
-    Raises with the compiler's errors if the build fails."""
+    """Compile each csrc/*.cu to an object in parallel (ptxas register
+    counts in BUILD_LOG), then link LIB_PATH.  Raises with the compiler's
+    errors if any step fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + sources()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR,
+                           os.path.basename(src)[:-3] + f".{tag}.o")
+        cmd = [nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = f"{LIB_PATH}.{tag}"
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp] + objs
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
     with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {res.returncode}):\n{res.stderr[-8000:]}")
+        f.write("\n".join(log))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
     os.replace(tmp, LIB_PATH)     # atomic: concurrent builders never see half
 
 

@@ -5,7 +5,9 @@ Counterpart of dusk_plonk_tpu/ops/ec.py.  Points are tuples (X, Y, Z) of
 is the complete RCB15 formula (a = 0), in the JAX package's step order, so
 raw projective outputs agree limb for limb.  `add` is kernel K9
 (ops/kernels.py::ec_add); `add_mixed` stays plain torch over the K1 mul
-(the MSM's mixed adds all run inside kernel K11a).
+(the MSM's mixed adds all run inside kernel K11a).  The step-axis methods
+`scan_mixed`, `sum_steps`, `scan_excl`, `double_add` and `combine` are
+kernels K11a, K11b, K4, K7 and K8.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from functools import lru_cache
 
 import torch
 
-from dusk_plonk_tpu.curves.bls import G1_GENERATOR
+from ..curves.bls import G1_GENERATOR
 
 from . import kernels
 from .limb import fq_field, int_to_limbs
@@ -63,16 +65,29 @@ class DeviceG1:
         F = self.F
         return (F.pack(xs, device), F.pack(ys, device), F.pack(zs, device))
 
-    def to_affine(self, pts):
-        """Projective ((24, N),)*3 -> [(x, y) | None]: one batched Fermat
-        inverse of Z on the device, then one fetch."""
+    def affine(self, pts):
+        """Projective ((24, N),)*3 -> the same points with Z = 1 (Montgomery),
+        the identity as (0, 1, 0): one batched Fermat inverse of Z on the
+        device."""
         F = self.F
         X, Y, Z = pts
         zinv = F.inv(Z)                                      # 0 stays 0
-        ax = F.unpack(F.mul(X, zinv))
-        ay = F.unpack(F.mul(Y, zinv))
-        inf = (Z == 0).all(dim=-2).reshape(-1).tolist()
+        inf = (Z == 0).all(dim=-2, keepdim=True)
+        one = F.const("one_mont", Z.device)
+        return (F.mul(X, zinv), torch.where(inf, one, F.mul(Y, zinv)),
+                torch.where(inf, 0, one))
+
+    def unpack_points(self, aff):
+        """Affine ((24, N),)*3 (Z in {0, 1}) -> [(x, y) | None], one fetch
+        per coordinate."""
+        F = self.F
+        ax, ay = F.unpack(aff[0]), F.unpack(aff[1])
+        inf = (aff[2] == 0).all(dim=-2).reshape(-1).tolist()
         return [None if i else (x, y) for x, y, i in zip(ax, ay, inf)]
+
+    def to_affine(self, pts):
+        """Projective ((24, N),)*3 -> [(x, y) | None]."""
+        return self.unpack_points(self.affine(pts))
 
     # -- complete addition (RCB15 alg. 7, a = 0) ------------------------------------
 
@@ -161,6 +176,25 @@ class DeviceG1:
         """g (cl, 48, lanes) affine steps -> per-lane inclusive prefix sums
         ((cl, 24, lanes),)*3 from the identity, kernel K11a."""
         return kernels.ec_scan_mixed(self, g)
+
+    def sum_steps(self, g):
+        """g ((steps, 24, lanes),)*3 -> per-lane sum ((24, lanes),)*3 from
+        the identity, kernel K11b."""
+        return kernels.ec_sum_steps(self, g)
+
+    def scan_excl(self, g):
+        """g ((steps, 24, lanes),)*3 -> per-lane exclusive prefix sums
+        ((steps, 24, lanes),)*3 (identity at step 0), kernel K4."""
+        return kernels.ec_scan_excl(self, g)
+
+    def double_add(self, a, b, k: int):
+        """2^k a + b on ((24, lanes),)*3 points, kernel K7."""
+        return kernels.ec_double_add(self, a, b, k)
+
+    def combine(self, g, c: int):
+        """Window totals ((W, 24, lanes),)*3, MSB window first ->
+        sum_w 2^(c (W-1-w)) T_w as ((24, lanes),)*3, kernel K8."""
+        return kernels.ec_combine(self, g, c)
 
     def neg(self, p):
         x, y, z = p

@@ -1,12 +1,24 @@
-"""The port's four hand-written CUDA kernels, each with its plain PyTorch
+"""The port's eight hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
-| wrapper         | kernel (csrc/)      | replaces (dusk_plonk_tpu/ops/)          |
-|-----------------|---------------------|-----------------------------------------|
-| mont_mul        | K1  mont_mul.cu     | pallas_field.py::mont_mul               |
-| ntt_ladder      | K2  ntt.cu          | pallas_field.py::ntt_ladder             |
-| ec_add          | K9  ec_add.cu       | pallas_field.py::ec_add                 |
-| ec_scan_mixed   | K11a ec_scan.cu     | pallas_field.py::ec_scan_mixed          |
+| wrapper       | kernel (csrc/)        | replaces (dusk_plonk_tpu/ops/)        |
+|---------------|-----------------------|---------------------------------------|
+| mont_mul      | K1  mont_mul.cu       | pallas_field.py::mont_mul             |
+| ntt_ladder    | K2  ntt.cu            | pallas_field.py::ntt_ladder           |
+| ec_add        | K9  ec_add.cu         | pallas_field.py::ec_add, ec_add14     |
+| ec_scan_mixed | K11a ec_scan.cu       | ::ec_scan_mixed, ec_scan_mixed14      |
+| ec_sum_steps  | K11b ec_sum.cu        | ::ec_sum_steps, ec_sum_steps14        |
+| ec_scan_excl  | K4  ec_scan_excl.cu   | ::ec_scan_excl14                      |
+| ec_double_add | K7  ec_double_add.cu  | ::ec_double_add14                     |
+| ec_combine    | K8  ec_combine.cu     | ::ec_combine14                        |
+
+The JAX package's 14-bit kernels (R = 2^392, lazy 14-bit limbs) answer the
+TPU's missing 32x32->64 multiply; on Hopper one 32-bit-word engine gives
+the same group elements, so each 14-bit row merges into its 16-bit
+counterpart (the 14-bit outputs are the same points, projectively scaled).
+
+The EC wrappers take and return projective points as ((..., 24, N),)*3
+tuples of int32 Montgomery limb planes, the layout of ops/ec.py.
 
 Rules every wrapper keeps: on CPU tensors it runs the plain version; on
 CUDA tensors it launches its kernel or raises (there is no fallback).  It
@@ -56,14 +68,18 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _wrappers():
+    return (mont_mul, ntt_ladder, ec_add, ec_scan_mixed, ec_sum_steps,
+            ec_scan_excl, ec_double_add, ec_combine)
+
+
 def reset_launches() -> None:
-    for fn in (mont_mul, ntt_ladder, ec_add, ec_scan_mixed):
+    for fn in _wrappers():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches
-            for fn in (mont_mul, ntt_ladder, ec_add, ec_scan_mixed)}
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 # -- carries of 16-bit limb rows (shared by every plain version) ------------------
@@ -282,6 +298,123 @@ def ec_scan_mixed(G1, g):
                                        cl, lanes, _stream())
     ec_scan_mixed.launches += 1
     _build.check(rc, "ec_scan_mixed")
+    return out
+
+
+# -- K11b, K4, K7, K8: step-axis EC kernels ---------------------------------------------
+
+def _check_points(name, pts, ndim):
+    """Three contiguous int32 (..., 24, lanes) planes of one shape with
+    `ndim` axes; returns the shape."""
+    _check_int32(*pts)
+    shape = pts[0].shape
+    if len(shape) != ndim or shape[-2] != 24:
+        raise ValueError(f"{name}: expected {ndim}-d (..., 24, lanes) "
+                         f"planes, got {tuple(shape)}")
+    for c in pts:
+        if c.shape != shape or not c.is_contiguous():
+            raise ValueError(f"{name}: planes must be contiguous, one shape")
+    return shape
+
+
+def _empty_points(shape, like):
+    return tuple(torch.empty(shape, dtype=torch.int32, device=like.device)
+                 for _ in range(3))
+
+
+def ec_sum_steps_plain(G1, g):
+    """K11b's plain version: acc = identity, then acc + g_s for each step
+    (RCB15 with K1's plain mul)."""
+    steps, _, lanes = g[0].shape
+    acc = G1.broadcast_identity((), lanes, g[0].device)
+    for s in range(steps):
+        acc = G1.add_formula(acc, tuple(c[s] for c in g), G1.F.mul_plain)
+    return acc
+
+
+def ec_sum_steps(G1, g):
+    """g ((steps, 24, lanes),)*3 -> ((24, lanes),)*3, the sum along the
+    step axis from the identity, in one launch."""
+    if _is_cpu(*g):
+        return ec_sum_steps_plain(G1, g)
+    steps, _, lanes = _check_points("ec_sum_steps", g, 3)
+    out = _empty_points((24, lanes), g[0])
+    rc = _build.lib().dt_ec_sum_steps(*(_ptr(c) for c in g + out), steps,
+                                      lanes, _stream())
+    ec_sum_steps.launches += 1
+    _build.check(rc, "ec_sum_steps")
+    return out
+
+
+def ec_scan_excl_plain(G1, g):
+    """K4's plain version: out_0 = identity, out_s = out_{s-1} + g_{s-1}."""
+    steps, _, lanes = g[0].shape
+    acc = G1.broadcast_identity((), lanes, g[0].device)
+    outs = []
+    for s in range(steps):
+        outs.append(acc)
+        acc = G1.add_formula(acc, tuple(c[s] for c in g), G1.F.mul_plain)
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
+def ec_scan_excl(G1, g):
+    """g ((steps, 24, lanes),)*3 -> ((steps, 24, lanes),)*3 exclusive
+    prefix sums per lane (identity at step 0), in one launch."""
+    if _is_cpu(*g):
+        return ec_scan_excl_plain(G1, g)
+    shape = _check_points("ec_scan_excl", g, 3)
+    out = _empty_points(shape, g[0])
+    rc = _build.lib().dt_ec_scan_excl(*(_ptr(c) for c in g + out), shape[0],
+                                      shape[-1], _stream())
+    ec_scan_excl.launches += 1
+    _build.check(rc, "ec_scan_excl")
+    return out
+
+
+def ec_double_add_plain(G1, a, b, k: int):
+    """K7's plain version: k doublings as complete adds a + a, then + b."""
+    mul = G1.F.mul_plain
+    for _ in range(k):
+        a = G1.add_formula(a, a, mul)
+    return G1.add_formula(a, b, mul)
+
+
+def ec_double_add(G1, a, b, k: int):
+    """2^k a + b on ((24, lanes),)*3 points, in one launch."""
+    if _is_cpu(*a, *b):
+        return ec_double_add_plain(G1, a, b, k)
+    shape = _check_points("ec_double_add", a + b, 2)
+    out = _empty_points(shape, a[0])
+    rc = _build.lib().dt_ec_double_add(*(_ptr(c) for c in a + b + out), k,
+                                       shape[-1], _stream())
+    ec_double_add.launches += 1
+    _build.check(rc, "ec_double_add")
+    return out
+
+
+def ec_combine_plain(G1, g, c: int):
+    """K8's plain version: from the identity, per window c doublings as
+    complete adds acc + acc, then + T_w (windows MSB first)."""
+    mul = G1.F.mul_plain
+    acc = G1.broadcast_identity((), g[0].shape[-1], g[0].device)
+    for w in range(g[0].shape[0]):
+        for _ in range(c):
+            acc = G1.add_formula(acc, acc, mul)
+        acc = G1.add_formula(acc, tuple(t[w] for t in g), mul)
+    return acc
+
+
+def ec_combine(G1, g, c: int):
+    """g ((W, 24, lanes),)*3 window totals, MSB window first ->
+    ((24, lanes),)*3 sum_w 2^(c (W-1-w)) T_w, in one launch."""
+    if _is_cpu(*g):
+        return ec_combine_plain(G1, g, c)
+    windows, _, lanes = _check_points("ec_combine", g, 3)
+    out = _empty_points((24, lanes), g[0])
+    rc = _build.lib().dt_ec_combine(*(_ptr(t) for t in g + out), windows, c,
+                                    lanes, _stream())
+    ec_combine.launches += 1
+    _build.check(rc, "ec_combine")
     return out
 
 

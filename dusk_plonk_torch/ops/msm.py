@@ -1,7 +1,8 @@
 """Pippenger multi-scalar multiplication (the KZG commit engine).
 
-Counterpart of dusk_plonk_tpu/ops/msm.py in its 16-bit configuration
-(`ec_limb14=False`), with both bucket-sum levels as step loops:
+Counterpart of dusk_plonk_tpu/ops/msm.py in its default configuration
+(`ec_limb14=True`: one kernel launch for each step of the bucket phase),
+with the 14-bit kernels merged into the port's one limb engine:
 
   1. signed c-bit window digits, |d| <= 2^(c-1), from the scalar limbs;
   2. per (commit, window) row, ONE torch.sort of an int64 key that packs
@@ -10,14 +11,16 @@ Counterpart of dusk_plonk_tpu/ops/msm.py in its 16-bit configuration
      n_pad + i = (x_i, -y_i): the digit sign folds into the index) into
      (cl, 48, lanes), then kernel K11a: a chunked inclusive prefix scan of
      mixed additions, one lane per (row, chunk);
-  4. chunk offsets by a Hillis-Steele exclusive scan on kernel K9;
+  4. chunk offsets: kernel K4, the exclusive prefix of each row's chunk
+     totals, one lane per row;
   5. the telescoped bucket reduction
        sum_d d B_d = NB P(N-1) - sum_{d<NB} P(t_d),
      with t_d from torch.searchsorted, the prefix reads P(t) = scan value +
-     chunk offset on K9, both bucket-sum levels as step loops of K9 and
-     the NB * full_sum doublings on K9;
-  6. the window combine on the host in C++ (native.g1_combine_windows),
-     as the JAX prover does.
+     chunk offset on K9, both levels of the bucket sum on K11b and
+     NB * full_sum - sum on K7;
+  6. the window combine: on the host in C++ (native.g1_combine_windows)
+     for the prover's commits, as the JAX prover does, or kernel K8 on the
+     device (`msm_device`, the JAX package's bench MSM).
 
 The commit batch B rides in the row axis (B * W rows), so every kernel
 launch covers all commits of a batch.
@@ -28,8 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dusk_plonk_tpu import native
-
+from .. import native
 from ..utils.config import get_config
 from .ec import device_g1
 from .limb import fq_field
@@ -40,13 +42,6 @@ MAX_WINDOW_BITS = 13
 def pick_window_bits(n: int) -> int:
     """c ~ log2(n) - 4, clamped (ops/msm.py::pick_window_bits)."""
     return max(2, min(MAX_WINDOW_BITS, n.bit_length() - 4))
-
-
-def require_host_combine() -> None:
-    """Raise unless the C++ window combine (native/) is built."""
-    if not native.has_combine_windows():
-        raise RuntimeError("native.g1_combine_windows is unavailable: "
-                           "build native/ (make -C native)")
 
 
 class MsmPlan:
@@ -142,21 +137,12 @@ class MsmPlan:
             cl, 48, lanes).contiguous()
         ps = G1.scan_mixed(g)                                  # K11a
 
-        # chunk offsets: exclusive prefix of the chunk totals of each row,
-        # Hillis-Steele over the whole lane grid (roll spill-over across
-        # rows lands only on lanes with pos < shift, kept by the mask)
-        if nc == 1:
-            offsets = G1.broadcast_identity((), lanes, dev)
-        else:
-            pos = torch.arange(lanes, device=dev) % nc
-            ident = G1.broadcast_identity((), lanes, dev)
-            last = tuple(torch.roll(c[-1], 1, dims=-1) for c in ps)
-            offsets = G1.select(pos == 0, ident, last)
-            for i in range((nc - 1).bit_length()):
-                sh = 1 << i
-                rolled = tuple(torch.roll(c, sh, dims=-1) for c in offsets)
-                offsets = G1.select(pos >= sh, G1.add(offsets, rolled),
-                                    offsets)
+        # chunk offsets: exclusive prefix of each row's chunk totals, K4
+        # over (nc steps, R lanes)
+        seq = tuple(c[-1].reshape(24, R, nc).permute(2, 0, 1).contiguous()
+                    for c in ps)                               # (nc, 24, R)
+        offsets = tuple(c.permute(1, 2, 0).reshape(24, lanes)
+                        for c in G1.scan_excl(seq))            # (24, R*nc)
 
         # bucket tails t_d = last sorted index with |digit| <= d, and the
         # full-sum index n - 1, read as scan value + chunk offset (K9)
@@ -178,46 +164,53 @@ class MsmPlan:
         grid = tuple(c.reshape(24, R, M) for c in pts)
         full_sum = tuple(c[..., NB].contiguous() for c in grid)   # (24, R)
 
-        # two-level sum over the NB bucket tails, each level a step loop
+        # two-level sum over the NB bucket tails, each level one K11b
+        # launch: sb steps on R * sa lanes, then sa steps on R lanes
         sa = 1 << ((self.window_bits - 1) // 2)
         sb = NB // sa
         lvl1 = tuple(c[..., :NB].reshape(24, R, sa, sb).permute(3, 0, 1, 2)
-                     .reshape(sb, 24, R * sa) for c in grid)
-        acc = G1.broadcast_identity((), R * sa, dev)
-        for s in range(sb):
-            acc = G1.add(acc, tuple(c[s] for c in lvl1))
-        lvl2 = tuple(c.reshape(24, R, sa).permute(2, 0, 1) for c in acc)
-        cur = G1.broadcast_identity((), R, dev)
-        for s in range(sa):
-            cur = G1.add(cur, tuple(c[s] for c in lvl2))
+                     .reshape(sb, 24, R * sa).contiguous() for c in grid)
+        acc = G1.sum_steps(lvl1)                               # (24, R*sa)
+        lvl2 = tuple(c.reshape(24, R, sa).permute(2, 0, 1).contiguous()
+                     for c in acc)                             # (sa, 24, R)
+        cur = G1.sum_steps(lvl2)                               # (24, R)
 
-        # total = NB * full_sum - sum_d P(t_d)
-        acc_nb = full_sum
-        for _ in range(NB.bit_length() - 1):
-            acc_nb = G1.add(acc_nb, acc_nb)
-        return G1.add(acc_nb, G1.neg(cur))
+        # total = NB * full_sum - sum_d P(t_d), one K7 launch
+        return G1.double_add(full_sum, G1.neg(cur), NB.bit_length() - 1)
 
     # -- public ------------------------------------------------------------------
 
     def window_totals(self, em, limbs_stack):
         """limbs_stack (B, 16, n) canonical -> LSB-first window totals,
-        ((B, W, 24),)*3 projective Montgomery."""
+        ((24, B * W),)*3 projective Montgomery, commit-major."""
         B = limbs_stack.shape[0]
         if self.n_pad != self.n:
             limbs_stack = torch.nn.functional.pad(
                 limbs_stack, (0, self.n_pad - self.n))
         digits = self._digits(limbs_stack)                     # (B, W, N)
-        W = self.num_windows
-        tot = self._window_totals(em, digits.reshape(B * W, self.n_pad))
-        return tuple(c.T.reshape(B, W, 24) for c in tot)
+        return self._window_totals(
+            em, digits.reshape(B * self.num_windows, self.n_pad))
+
+    def msm_device(self, em, limbs):
+        """em: a prepare_points table; limbs (16, n) or (B, 16, n)
+        canonical scalar limbs.  Returns the B results as projective
+        ((24, B),)*3 device points: the window totals, then the window
+        combine on the device (kernel K8, one lane per MSM)."""
+        if limbs.dim() == 2:
+            limbs = limbs[None]
+        B, W = limbs.shape[0], self.num_windows
+        tot = self.window_totals(em, limbs)
+        msb = tuple(c.reshape(24, B, W).flip(-1).permute(2, 0, 1)
+                    .contiguous() for c in tot)                # (W, 24, B)
+        return self.G1.combine(msb, self.window_bits)
 
     def msm_affine_batch(self, em, limbs_stack):
         """em: a prepare_points table; limbs_stack (B, 16, n) canonical
         scalar limbs.  Returns B affine host points ((x, y) or None)."""
-        require_host_combine()
-        B = limbs_stack.shape[0]
+        B, W = limbs_stack.shape[0], self.num_windows
         tot = self.window_totals(em, limbs_stack)
-        arrs = [c.cpu().numpy().astype("<u2") for c in tot]    # (B, W, 24)
+        arrs = [c.T.reshape(B, W, 24).cpu().numpy().astype("<u2")
+                for c in tot]                                  # (B, W, 24)
         buf = np.stack(arrs, axis=2)                           # (B, W, 3, 24)
         return native.g1_combine_windows(
             buf.tobytes(), B, self.num_windows, self.window_bits)

@@ -16,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dusk_plonk_tpu.fields.constants import R_MOD, FR_GENERATOR
-from dusk_plonk_tpu.fields.host import fr_root_of_unity
-
+from ..fields.constants import R_MOD, FR_GENERATOR
+from ..fields.host import fr_root_of_unity
 from . import kernels
 from .limb import fr_field
 

@@ -1,7 +1,8 @@
-"""dusk_plonk_torch.ops.msm (the 16-bit Pippenger pipeline over kernels K9 and
-K11a, their plain versions on the CPU) against the host MSMs: the C++
-native.g1_msm and the Python curves.bls.g1_msm.  Group elements are compared
-in affine form.  Scalars are made from a seed with numpy."""
+"""dusk_plonk_torch.ops.msm (the Pippenger pipeline over kernels K11a, K4,
+K9, K11b and K7, with the window combine on the host or on kernel K8; their
+plain versions on the CPU) against the host MSMs: the C++ native.g1_msm and
+the Python curves.bls.g1_msm.  Group elements are compared in affine form.
+Scalars are made from a seed with numpy."""
 
 import numpy as np
 import pytest
@@ -50,6 +51,21 @@ def test_msm_batch_matches_host(srs_points, n):
     assert got[0] == native.g1_msm(pts, batch[0])
     assert got[1] == bls.g1_msm(pts, batch[1])
     assert got[2] is None
+
+
+@pytest.mark.parametrize("n", [37, 135, 1031])
+def test_msm_device_matches_host(srs_points, n):
+    """msm_device (window totals, then the device combine K8) on a batch
+    of two, and at n = 37 on one (16, n) scalar vector."""
+    pts = srs_points[:n]
+    batch = [_scalars(200 * n + b, n) for b in range(1 if n == 37 else 2)]
+    F = fr_field()
+    limbs = torch.stack([F.pack(s, "cpu", to_mont=False) for s in batch])
+    plan = MsmPlan(n)
+    G1 = device_g1()
+    em = plan.prepare_points(G1.pack_points(pts, "cpu"))
+    got = G1.to_affine(plan.msm_device(em, limbs[0] if n == 37 else limbs))
+    assert got == [bls.g1_msm(pts, s) for s in batch]
 
 
 def test_digits_recompose():
