@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port (dusk_plonk_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases env,kernels,small,full,msm]
+    python3 chip_smoke.py [--phases env,kernels,small,full,msm,alt]
 
 Phases, one summary line each (more for kernels):
   1. env: the card, torch / CUDA / nvcc versions, and the build of the
@@ -18,7 +18,13 @@ Phases, one summary line each (more for kernels):
      spot-checked against the host), one warm and two timed proofs, the
      host verifier, and each kernel's launches on each path (> 0);
   5. msm: bench.py's MSM metric, MsmPlan.msm_device on 2^16 seeded
-     points, equal to the host C++ MSM, best of 3 in points/s.
+     points, equal to the host C++ MSM, best of 3 in points/s;
+  6. alt: the JAX package's switched-off configuration (ntt_mxu_min_k =
+     16: every NTT on the four-step int8 tensor-core route, kernel K13;
+     ec_scan_em: every chunk scan on kernel K12) through setup, compile and
+     proofs at 2^16, each equal to the default configuration's byte for
+     byte, the msm phase under ec_scan_em, and the JAX MSM's per-step scan
+     route (one kernel K10 launch a step) at 2^10 points.
 
 Then a JSON line of per-kernel results (with each kernel's bound), the
 card's name and power limit, and, last, {"ok": true, "device": {...}}.  Any
@@ -36,7 +42,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "kernels", "small", "full", "msm")
+PHASES = ("env", "kernels", "small", "full", "msm", "alt")
 K = 16          # log2 constraints of the full-width proof (bench.py's 2^16)
 
 
@@ -91,6 +97,10 @@ INT_MULS_PER_SM_CLOCK = 64    # 32-bit integer multiply(-add)s per SM per
 # NW^2 for a b, NW^2 for m p, NW for m = t_0 n'
 FR_MUL, FQ_MUL = 2 * 8 * 8 + 8, 2 * 12 * 12 + 12
 EC_ADD, EC_ADD_MIXED = 12 * FQ_MUL, 11 * FQ_MUL     # RCB15 complete / mixed
+# K13's wide Montgomery reduction by 2^272: eight 32-bit steps (m, then
+# m p over 8 words) and one 16-bit step
+REDUCE_PLANES = 8 * (1 + 8) + (1 + 8)
+INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 
 
 def int_mul_rate():
@@ -211,11 +221,12 @@ def phase_kernels(shapes):
     of each kernel is its headline shape, whose bound the JSON line
     carries."""
     import torch
-    from dusk_plonk_torch.ops import kernels
+    from dusk_plonk_torch.ops import kernels, mxu_ntt
     from dusk_plonk_torch.ops.limb import fr_field, fq_field
     from dusk_plonk_torch.ops.ntt import NttPlan
     from dusk_plonk_torch.ops.ec import device_g1
     from dusk_plonk_torch.prelude import ChaCha12Rng, PlonkParams
+    from dusk_plonk_torch.utils import config
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(8349)
     Fr, Fq, G1 = fr_field(), fq_field(), device_g1()
@@ -279,6 +290,67 @@ def phase_kernels(shapes):
                ((2 * batch + 1 / 2) * 16 * n * 4,
                 batch * k * (n // 2) * FR_MUL))
 
+    # K13: the four-step route's plane reduction at the alt path's
+    # transform shapes (round 1's iNTTs at n, round 3's coset batch at 8n),
+    # on real digit products of the plan's DFT matrix; beside it, for each
+    # matrix step, the 33 torch._int_mm calls of one mod_matmul alone and
+    # with the plane accumulation, and one whole four-step transform
+    # against the K2 ladder on the same input
+    old = config.get_config()
+    config.set_config(ntt_mxu_min_k=16)
+    try:
+        mxu_plans = {k: NttPlan(k, dev) for k in (16, 19)}
+    finally:
+        config.set_config(ntt_mxu_min_k=old.ntt_mxu_min_k)
+    for k, batch, kind in ((16, 4, "idft"), (19, 6, "coset_dft")):
+        plan = mxu_plans[k]
+        n = 1 << k
+        n1, n2 = mxu_ntt.split(k)
+        x = rand_limbs(gen, Fr, (batch, n), dev)
+        xd = mxu_ntt._to_digits(x)                         # (B, 33, n)
+        planes = mxu_ntt.int8_products(
+            plan.tw_fwd.w2d, xd.reshape(batch, 33, n2, n1)).reshape(
+                batch, 65, n)
+        check("reduce_planes", f"(B={batch},65,2^{k})",
+              lambda: kernels.reduce_planes(Fr, planes),
+              lambda: kernels.reduce_planes_plain(Fr, planes), 20,
+              (batch * n * (65 + 16) * 4, batch * n * REDUCE_PLANES))
+        steps = {}
+        for step, wd, mi, t in ((1, plan.tw_fwd.w2d, n2, n1),
+                                (2, plan.tw_fwd.w1d, n1, n2)):
+            xs = xd.reshape(batch, 33, mi, t)
+            a = wd.reshape(33 * mi, mi)
+            cols = xs.permute(1, 2, 0, 3).reshape(33, mi, batch * t)
+
+            # the same products with the right operand K-major (a
+            # transposed view of (B t, mi) rows), a layout probe for
+            # cuBLASLt's int8 path; the port passes it N-major
+            kcols = xs.permute(1, 0, 3, 2).reshape(33, batch * t, mi)
+            if not torch.equal(mxu_ntt._int8_mm(a, cols[0]),
+                               mxu_ntt._int8_mm(a, kcols[0].t())):
+                raise AssertionError("int8 products depend on the layout")
+
+            def products(right):
+                for l in range(33):
+                    mxu_ntt._int8_mm(a, right(l))
+            steps[step] = {
+                "int_mm_ms": cuda_ms(lambda: products(lambda l: cols[l]), 3),
+                "int_mm_kmajor_ms": cuda_ms(
+                    lambda: products(lambda l: kcols[l].t()), 3),
+                "int8_products_ms": cuda_ms(
+                    lambda: mxu_ntt.int8_products(wd, xs), 3),
+                "int8_bound_ms": 2 * 33 * 33 * mi * mi * batch * t
+                / INT8_OPS_PER_S * 1e3}
+        out = getattr(plan, kind)(x)
+        err = max_abs_err(out, getattr(plans[k], kind)(x))
+        say("kernels", four_step=f"{kind}(B={batch},k={k})", n1=n1, n2=n2,
+            steps=steps,
+            four_step_ms=cuda_ms(lambda: getattr(plan, kind)(x), 3),
+            ladder_ms=cuda_ms(lambda: getattr(plans[k], kind)(x), 3),
+            max_abs_err_vs_ladder=err)
+        if err != 0:
+            raise AssertionError(f"four-step {kind} k={k} != the ladder")
+
     # points: 64 SRS powers of a seeded setup, random projective
     # representatives of them
     host = PlonkParams.setup(6, ChaCha12Rng.seed_from_u64(8349)).powers[:64]
@@ -334,6 +406,33 @@ def phase_kernels(shapes):
           lambda: kernels.ec_add_plain(G1, p, q), 20,
           (9 * 24 * lanes * 4, lanes * EC_ADD))
 
+    # K10: DeviceG1.add_mixed at the JAX MSM's per-step scan width (W nc
+    # lanes of a 2^10-point MSM) and at the bucket-tail width; lane 0 adds
+    # to the identity, lane 1 doubles (p = q), lane 2 gives the identity
+    # (p = -q)
+    one = Fq.const("one_mont", dev)
+    for lanes in (shapes["step_lanes"], shapes["tails"]):
+        p = tuple(c.clone() for c in proj(lanes))
+        idx = torch.randint(0, 64, (lanes,), generator=gen).to(dev)
+        q2 = (aff[0][:, idx].contiguous(), aff[1][:, idx].contiguous())
+        for c, i in zip(p, ident):
+            c[:, 0:1] = i
+        p[0][:, 1:3] = q2[0][:, 1:3]
+        p[1][:, 1:2] = q2[1][:, 1:2]
+        p[1][:, 2:3] = Fq.neg(q2[1][:, 2:3])
+        p[2][:, 1:3] = one
+        q3 = (q2[0][:, :2], q2[1][:, :2], one.expand(24, 2).contiguous())
+        got = G1.to_affine(tuple(c[:, :3] for c in G1.add_mixed(p, q2)))
+        want = G1.to_affine(G1.add(q3, q3))
+        if (got[0] != G1.to_affine(q3)[0] or got[1] != want[1]
+                or got[2] is not None):
+            raise AssertionError("ec_add_mixed: group law violated on "
+                                 "special lanes")
+        check("ec_add_mixed", f"lanes={lanes}",
+              lambda: kernels.ec_add_mixed(G1, p, q2),
+              lambda: kernels.ec_add_mixed_plain(G1, p, q2), 20,
+              (8 * 24 * lanes * 4, lanes * EC_ADD_MIXED))
+
     # K11a: the chunk scan of one 2^16 commit, of the proof's 4-commit
     # batch, and at the JAX MSM's padded lane width
     cl = 256
@@ -345,6 +444,16 @@ def phase_kernels(shapes):
               lambda: kernels.ec_scan_mixed(G1, g),
               lambda: kernels.ec_scan_mixed_plain(G1, g), 3,
               (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED))
+
+    # K12: the element-major chunk scan of one 2^16 commit (the alt path)
+    lanes = shapes["scan"]
+    idx = torch.randint(0, 64, (cl * lanes,), generator=gen).to(dev)
+    g = torch.cat([aff[0][:, idx], aff[1][:, idx]]).reshape(
+        48, cl, lanes).permute(1, 0, 2).contiguous()
+    check("ec_scan_mixed_em", f"(cl={cl},48,lanes={lanes})",
+          lambda: kernels.ec_scan_mixed_em(G1, g),
+          lambda: kernels.ec_scan_mixed_em_plain(G1, g), 3,
+          (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED))
 
     # K11b: level 1 (sb steps on W * sa lanes a commit) and level 2 (sa
     # steps on W lanes) of the bucket sum, for the proof's 4-commit batch
@@ -494,7 +603,11 @@ def phase_full(k):
         rounds_best=rounds[best], rounds_warm=warm, verified=True,
         verify_s=verify_s, launches_proof=counts["proof"],
         ec_add_per_proof=counts["proof"]["ec_add"] / 3,
-        ec_add_per_proof_pr1=604,
+        ec_add_per_proof_pr1=604, best_s_pr2=[0.4908, 0.5394],
+        launches_per_proof_pr2={"mont_mul": 798, "ntt_ladder": 86,
+                                "ec_add": 4, "ec_scan_mixed": 4,
+                                "ec_sum_steps": 8, "ec_scan_excl": 4,
+                                "ec_double_add": 4},
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     need = {"setup": ("ec_add",),
             "compile": ("mont_mul", "ntt_ladder", "ec_add", "ec_scan_mixed",
@@ -509,10 +622,10 @@ def phase_full(k):
     return counts
 
 
-def phase_msm():
+def phase_msm(phase="msm", need=("ec_combine",)):
     """bench.py's MSM metric: msm_device on 2^16 seeded points (tau^i G of
     a seeded device setup) and seeded scalars, best of 3, equal to the
-    host C++ MSM."""
+    host C++ MSM, under the config the caller set."""
     import numpy as np
     import torch
     from dusk_plonk_torch import native
@@ -542,12 +655,126 @@ def phase_msm():
     counts = kernels.launch_counts()
     got = device_g1().to_affine(out)[0]
     if got != native.g1_msm(pp.powers[:n], scalars):
-        raise AssertionError("msm_device differs from the host MSM")
+        raise AssertionError(f"{phase}: msm_device differs from the host "
+                             f"MSM")
     best = min(times)
-    say("msm", n=n, times_s=times, best_s=best, points_per_s=n / best,
-        equal_to_host=True, launches=counts)
-    if counts["ec_combine"] == 0:
-        raise AssertionError("ec_combine never launched by msm_device")
+    say(phase, n=n, scan_em=plan.scan_em, times_s=times, best_s=best,
+        points_per_s=n / best, best_s_pr2=0.04950, equal_to_host=True,
+        launches=counts)
+    missing = [name for name in need if counts[name] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: never launched by msm_device: "
+                             f"{missing}")
+    return counts
+
+
+def phase_alt(k):
+    """The JAX package's switched-off configuration at 2^k: one device
+    setup, a key and a proof under the default config, then under
+    ntt_mxu_min_k = k and ec_scan_em a key (equal verification key bytes)
+    and three proofs from the same seed (each equal to the default proof
+    byte for byte, verified), msm_device at 2^16, and the JAX MSM's
+    per-step scan route at 2^10 points (K10).  Each path's launches are
+    counted from 0 just before it; the default config is restored at the
+    end."""
+    import torch
+    from dusk_plonk_torch.ops import kernels
+    from dusk_plonk_torch.ops.ec import device_g1
+    from dusk_plonk_torch.ops.msm import MsmPlan
+    from dusk_plonk_torch.prelude import ChaCha12Rng, PlonkKey, PlonkParams
+    from dusk_plonk_torch.utils import config
+    Bench = bench_circuit(k)
+    pp = PlonkParams.setup_device(k, ChaCha12Rng.seed_from_u64(8349))
+    prover, verifier = PlonkKey.compile_device(pp, Bench)
+    vk = prover.verifier_key.to_bytes()
+    ref, ref_pis = prover.create_proof(ChaCha12Rng.seed_from_u64(77),
+                                       Bench(3))
+    ref_bytes = ref.to_bytes()
+    del prover
+    counts = {}
+    old = config.get_config()
+    try:
+        config.set_config(ntt_mxu_min_k=k, ec_scan_em=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        prover, verifier_a = PlonkKey.compile_device(pp, Bench)
+        compile_s = time.perf_counter() - t0
+        counts["compile"] = kernels.launch_counts()
+        engine = prover.engine
+        if not (engine.plan_n.mxu and engine.plan_8n.mxu
+                and engine.msm.scan_em):
+            raise AssertionError("alt: the plans did not take the "
+                                 "switched-off routes")
+        if prover.verifier_key.to_bytes() != vk:
+            raise AssertionError("alt: verification key differs from the "
+                                 "default config's")
+        kernels.reset_launches()
+        times, rounds = [], []
+        for i in range(3):                          # the first is warm
+            t0 = time.perf_counter()
+            proof, pis = prover.create_proof(ChaCha12Rng.seed_from_u64(77),
+                                             Bench(3))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rounds.append(dict(engine.last_timings))
+            if proof.to_bytes() != ref_bytes or pis != ref_pis:
+                raise AssertionError(f"alt: proof {i} differs from the "
+                                     f"default config's")
+        counts["proof"] = kernels.launch_counts()
+        verifier.verify(proof, pis)
+        verifier_a.verify(proof, pis)
+        best = min((1, 2), key=lambda i: times[i])
+        say("alt", k=k, compile_s=compile_s,
+            compile_steps=engine.compile_timings, vk_equal=True,
+            proofs_equal_to_default=True, verified=True, proof_s=times[1:],
+            warm_s=times[0], best_s=times[best], rounds_best=rounds[best],
+            rounds_warm=rounds[0], launches_compile=counts["compile"],
+            launches_proof=counts["proof"])
+        on = ("mont_mul", "ec_add", "ec_scan_mixed_em", "ec_sum_steps",
+              "ec_scan_excl", "ec_double_add", "reduce_planes")
+        off = ("ntt_ladder", "ec_scan_mixed")
+        bad = [(path, name) for path in ("compile", "proof")
+               for name in on if counts[path][name] == 0] + \
+              [(path, name) for path in ("compile", "proof")
+               for name in off if counts[path][name] != 0]
+        if bad:
+            raise AssertionError(f"alt: launches off their routes: {bad}")
+        del prover, engine
+        counts["msm"] = phase_msm("alt_msm", ("ec_scan_mixed_em",
+                                              "ec_combine"))
+        if counts["msm"]["ec_scan_mixed"]:
+            raise AssertionError("alt_msm: K11a launched under ec_scan_em")
+    finally:
+        config.set_config(ntt_mxu_min_k=old.ntt_mxu_min_k,
+                          ec_scan_em=old.ec_scan_em)
+
+    # the JAX MSM's per-step scan route (ops/msm.py:297-304), taken when
+    # its scan lanes are no multiple of 128: W nc lanes of a 2^10-point
+    # MSM, one DeviceG1.add_mixed (K10) launch a step, held against the
+    # K11a scan of the same steps
+    G1 = device_g1()
+    plan = MsmPlan(1 << 10)
+    cl, lanes = plan.chunk_len, plan.num_windows * (plan.n_pad
+                                                   // plan.chunk_len)
+    gen = torch.Generator().manual_seed(10)
+    idx = torch.randint(0, pp.packed[0].shape[-1], (cl * lanes,),
+                        generator=gen).to("cuda")
+    g = torch.cat([pp.packed[0][:, idx], pp.packed[1][:, idx]]).reshape(
+        48, cl, lanes).permute(1, 0, 2).contiguous()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    acc = G1.broadcast_identity((), lanes, "cuda")
+    for step in range(cl):
+        acc = G1.add_mixed(acc, (g[step, :24], g[step, 24:]))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts["step_scan"] = kernels.launch_counts()
+    err = max_abs_err(acc, tuple(c[-1] for c in G1.scan_mixed(g)))
+    say("alt", step_scan=f"(cl={cl},24,lanes={lanes})", wall_s=step_s,
+        max_abs_err_vs_scan=err, launches=counts["step_scan"])
+    if err != 0 or counts["step_scan"]["ec_add_mixed"] != cl:
+        raise AssertionError("alt: the per-step scan route is wrong")
     return counts
 
 
@@ -557,9 +784,13 @@ SOURCES = {
     "ntt_stage": ("dusk_plonk_torch/csrc/ntt.cu", f"{PR}:1409, {PR}:1458"),
     "ec_add": ("dusk_plonk_torch/csrc/ec_add.cu",
                f"{PR}:337 (K9), {PR}:1177 (K5 ec_add14, merged)"),
+    "ec_add_mixed": ("dusk_plonk_torch/csrc/ec_add_mixed.cu",
+                     f"{PR}:354 (K10)"),
     "ec_scan_mixed": ("dusk_plonk_torch/csrc/ec_scan.cu",
                       f"{PR}:769 (K11a), {PR}:926 (K3 ec_scan_mixed14, "
                       "merged)"),
+    "ec_scan_mixed_em": ("dusk_plonk_torch/csrc/ec_scan.cu",
+                         f"{PR}:990 (K12 ec_scan_mixed14_em)"),
     "ec_sum_steps": ("dusk_plonk_torch/csrc/ec_sum.cu",
                      f"{PR}:839 (K11b), {PR}:1049 (K6 ec_sum_steps14)"),
     "ec_scan_excl": ("dusk_plonk_torch/csrc/ec_scan_excl.cu",
@@ -568,7 +799,15 @@ SOURCES = {
                       f"{PR}:1223 (K7 ec_double_add14)"),
     "ec_combine": ("dusk_plonk_torch/csrc/ec_combine.cu",
                    f"{PR}:1277 (K8 ec_combine14)"),
+    "reduce_planes": ("dusk_plonk_torch/csrc/reduce_planes.cu",
+                      "dusk_plonk_tpu/ops/mxu_ntt.py:185 (K13)"),
 }
+# the path whose launches each row reports: the default proofs, except
+# K8 (msm_device), K10 (the per-step scan route) and K12, K13 (the alt
+# config's proofs)
+PATH = {"ec_combine": ("msm",), "ec_add_mixed": ("alt", "step_scan"),
+        "ec_scan_mixed_em": ("alt", "proof"),
+        "reduce_planes": ("alt", "proof")}
 WRAPPER = {name: name for name in SOURCES}
 WRAPPER["ntt_stage"] = "ntt_ladder"
 
@@ -586,30 +825,47 @@ def main():
     sys.path.insert(0, ROOT)
     from dusk_plonk_torch.ops.msm import MsmPlan
 
-    # main-path shapes of the 2^16 proof's MSM (per commit)
+    # main-path shapes of the 2^16 proof's MSM (per commit), and the JAX
+    # MSM's per-step scan width at 2^10 points
     plan = MsmPlan((1 << K) + 7)
     nc = plan.n_pad // plan.chunk_len
     sa = 1 << ((plan.window_bits - 1) // 2)
+    plan10 = MsmPlan(1 << 10)
     shapes = {"srs": plan.n, "scan": plan.num_windows * nc,
               "tails": plan.num_windows * (plan.nb + 1),
               "windows": plan.num_windows, "chunks": nc, "sa": sa,
               "sb": plan.nb // sa, "nb_log2": plan.nb.bit_length() - 1,
-              "window_bits": plan.window_bits}
+              "window_bits": plan.window_bits,
+              "step_lanes": plan10.num_windows * (plan10.n_pad
+                                                  // plan10.chunk_len)}
 
-    if "env" in phases:
-        phase_env()
-    results = phase_kernels(shapes) if "kernels" in phases else {}
-    if "small" in phases:
-        phase_small()
-    counts = phase_full(K) if "full" in phases else {}
-    msm_counts = phase_msm() if "msm" in phases else {}
+    results, counts = {}, {"msm": {}, "alt": {}}
+    walls = {}
+    for name in PHASES:
+        if name not in phases:
+            continue
+        t0 = time.perf_counter()
+        if name == "env":
+            phase_env()
+        elif name == "kernels":
+            results = phase_kernels(shapes)
+        elif name == "small":
+            phase_small()
+        elif name == "full":
+            counts.update(phase_full(K))
+        elif name == "msm":
+            counts["msm"] = phase_msm()
+        elif name == "alt":
+            counts["alt"] = phase_alt(K)
+        walls[name] = time.perf_counter() - t0
+        say("wall", of=name, s=walls[name])
 
     rows = []
     for name, (src, replaces) in SOURCES.items():
         r = results.get(name, {})
-        # launches on the main path: the three proofs; msm_device for K8
-        path = msm_counts if name == "ec_combine" else counts.get("proof",
-                                                                  {})
+        path = counts
+        for key in PATH.get(name, ("proof",)):
+            path = path.get(key, {})
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": path.get(WRAPPER[name]),

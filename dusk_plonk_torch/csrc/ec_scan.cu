@@ -1,27 +1,37 @@
-// K11a: per-lane inclusive prefix scan of complete mixed G1 additions.
+// K11a and K12: per-lane inclusive prefix scan of complete mixed G1
+// additions, with limb-plane (K11a) or element-major (K12) output.
 //
-// Replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::ec_scan_mixed
-// (_ec_scan_mixed_kernel), the 16-bit chunk scan of the Pippenger MSM, and
-// its 14-bit twin ::ec_scan_mixed14 (_ec_scan_mixed14_kernel) of the
-// default configuration (ops/msm.py::MsmPlan._window_group_totals); the
-// group elements are the same.
+// K11a replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::
+// ec_scan_mixed (_ec_scan_mixed_kernel), the 16-bit chunk scan of the
+// Pippenger MSM, and its 14-bit twin ::ec_scan_mixed14
+// (_ec_scan_mixed14_kernel) of the default configuration
+// (ops/msm.py::MsmPlan._window_group_totals); the group elements are the
+// same.  K12 replaces ::ec_scan_mixed14_em (_ec_scan_mixed14_em_kernel),
+// the same scan with element-major output, routed by config.ec_scan_em:
+// the bucket phase then reads each prefix point as 72 contiguous words.
+// The JAX 14-bit kernels return the points projectively scaled by 2^8;
+// these return the 16-bit engine's own triples (the same points).
 //
 // Input g is (cl, 48, lanes): for step s, rows 0..23 hold the affine x and
-// rows 24..47 the affine y of the point added on each lane.  Output is
-// three (cl, 24, lanes) planes, the running sum after each step, starting
-// from the identity: acc_s = acc_{s-1} + g_s.
+// rows 24..47 the affine y of the point added on each lane.  The running
+// sum after each step, from the identity (acc_s = acc_{s-1} + g_s), goes
+// to three (cl, 24, lanes) planes (K11a) or to one (cl, lanes, 72) array
+// (K12): row (s, lane) holds x, y, z as 24 limbs each.
 //
 // Bound on the H100: integer ALU and registers (11 Fq Montgomery
 // multiplies per step) -- the TPU kernel carried the accumulator in VMEM
 // across a sequential grid axis; here the step loop runs inside the thread
 // and the 36-word accumulator never leaves registers.  Design: one thread
-// per lane; each step reads 48 words and writes 72, with neighbouring
-// threads on neighbouring lanes.  __launch_bounds__(128) allows 255
-// registers a thread for the RCB15 temporaries.  Parallelism is the lane
-// count (commits x windows x chunks), which the MSM keeps in the thousands.
+// per lane; each step reads 48 words and writes 72.  Reads are coalesced
+// (neighbouring threads on neighbouring lanes); K12's writes are 72
+// contiguous words a thread, so one warp's step fills one contiguous 9 KB
+// span.  __launch_bounds__(128) allows 255 registers a thread for the
+// RCB15 temporaries.  Parallelism is the lane count (commits x windows x
+// chunks), which the MSM keeps in the thousands.
 
 #include "ec.cuh"
 
+template <bool EM>
 __global__ void __launch_bounds__(128)
 ec_scan_mixed_kernel(const uint32_t* __restrict__ g, uint32_t* __restrict__ ox,
                      uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
@@ -36,22 +46,41 @@ ec_scan_mixed_kernel(const uint32_t* __restrict__ g, uint32_t* __restrict__ ox,
     load_limbs<12>(x2, src, lanes);
     load_limbs<12>(y2, src + 24 * lanes, lanes);
     g1_add_mixed(acc, acc, x2, y2);
-    int64_t off = (int64_t)s * 24 * lanes + lane;
-    store_limbs<12>(ox + off, lanes, acc.x);
-    store_limbs<12>(oy + off, lanes, acc.y);
-    store_limbs<12>(oz + off, lanes, acc.z);
+    if (EM) {
+      uint32_t* row = ox + ((int64_t)s * lanes + lane) * 72;
+      store_limbs<12>(row, 1, acc.x);
+      store_limbs<12>(row + 24, 1, acc.y);
+      store_limbs<12>(row + 48, 1, acc.z);
+    } else {
+      int64_t off = (int64_t)s * 24 * lanes + lane;
+      store_limbs<12>(ox + off, lanes, acc.x);
+      store_limbs<12>(oy + off, lanes, acc.y);
+      store_limbs<12>(oz + off, lanes, acc.z);
+    }
   }
 }
 
-extern "C" int dt_ec_scan_mixed(const void* g, void* ox, void* oy, void* oz,
-                                int cl, int64_t lanes, void* stream) {
+template <bool EM>
+static int launch(const void* g, void* ox, void* oy, void* oz, int cl,
+                  int64_t lanes, void* stream) {
   if (lanes > 0 && cl > 0) {
     int threads = 128;
     int64_t blocks = (lanes + threads - 1) / threads;
-    ec_scan_mixed_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
+    ec_scan_mixed_kernel<EM><<<(unsigned)blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
         (const uint32_t*)g, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, cl,
         lanes);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int dt_ec_scan_mixed(const void* g, void* ox, void* oy, void* oz,
+                                int cl, int64_t lanes, void* stream) {
+  return launch<false>(g, ox, oy, oz, cl, lanes, stream);
+}
+
+// K12: out is one (cl, lanes, 72) array
+extern "C" int dt_ec_scan_mixed_em(const void* g, void* out, int cl,
+                                   int64_t lanes, void* stream) {
+  return launch<true>(g, out, nullptr, nullptr, cl, lanes, stream);
 }

@@ -4,10 +4,10 @@ Counterpart of dusk_plonk_tpu/ops/ec.py.  Points are tuples (X, Y, Z) of
 (..., 24, N) int32 Montgomery limb tensors; identity = (0, 1, 0).  Addition
 is the complete RCB15 formula (a = 0), in the JAX package's step order, so
 raw projective outputs agree limb for limb.  `add` is kernel K9
-(ops/kernels.py::ec_add); `add_mixed` stays plain torch over the K1 mul
-(the MSM's mixed adds all run inside kernel K11a).  The step-axis methods
-`scan_mixed`, `sum_steps`, `scan_excl`, `double_add` and `combine` are
-kernels K11a, K11b, K4, K7 and K8.
+(ops/kernels.py::ec_add) and `add_mixed` kernel K10 (ec_add_mixed; the
+MSM's mixed adds run inside its scan kernels instead).  The step-axis
+methods `scan_mixed`, `scan_mixed_em`, `sum_steps`, `scan_excl`,
+`double_add` and `combine` are kernels K11a, K12, K11b, K4, K7 and K8.
 """
 
 from __future__ import annotations
@@ -139,9 +139,12 @@ class DeviceG1:
         return (x3, y3, z3)
 
     def add_mixed(self, p, q2):
-        """p + (x2, y2) with q strictly affine (z2 = 1, never the identity);
-        plain torch over the K1 mul."""
-        return self.add_mixed_formula(p, q2, self.F.mul)
+        """p + (x2, y2) with q strictly affine (z2 = 1, never the identity),
+        kernel K10 (operands broadcast to one shape)."""
+        shape = torch.broadcast_shapes(*(c.shape for c in p + q2))
+        p = tuple(c.expand(shape).contiguous() for c in p)
+        q2 = tuple(c.expand(shape).contiguous() for c in q2)
+        return kernels.ec_add_mixed(self, p, q2)
 
     def add_mixed_formula(self, p, q2, mul):
         """RCB15 mixed addition, 11 multiplies
@@ -176,6 +179,11 @@ class DeviceG1:
         """g (cl, 48, lanes) affine steps -> per-lane inclusive prefix sums
         ((cl, 24, lanes),)*3 from the identity, kernel K11a."""
         return kernels.ec_scan_mixed(self, g)
+
+    def scan_mixed_em(self, g):
+        """As scan_mixed, element-major: (cl, lanes, 72) rows of (x, y, z),
+        kernel K12."""
+        return kernels.ec_scan_mixed_em(self, g)
 
     def sum_steps(self, g):
         """g ((steps, 24, lanes),)*3 -> per-lane sum ((24, lanes),)*3 from

@@ -1,16 +1,19 @@
-"""The port's eight hand-written CUDA kernels, each with its plain PyTorch
+"""The port's eleven hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
-| wrapper       | kernel (csrc/)        | replaces (dusk_plonk_tpu/ops/)        |
-|---------------|-----------------------|---------------------------------------|
-| mont_mul      | K1  mont_mul.cu       | pallas_field.py::mont_mul             |
-| ntt_ladder    | K2  ntt.cu            | pallas_field.py::ntt_ladder           |
-| ec_add        | K9  ec_add.cu         | pallas_field.py::ec_add, ec_add14     |
-| ec_scan_mixed | K11a ec_scan.cu       | ::ec_scan_mixed, ec_scan_mixed14      |
-| ec_sum_steps  | K11b ec_sum.cu        | ::ec_sum_steps, ec_sum_steps14        |
-| ec_scan_excl  | K4  ec_scan_excl.cu   | ::ec_scan_excl14                      |
-| ec_double_add | K7  ec_double_add.cu  | ::ec_double_add14                     |
-| ec_combine    | K8  ec_combine.cu     | ::ec_combine14                        |
+| wrapper          | kernel (csrc/)        | replaces (dusk_plonk_tpu/ops/)     |
+|------------------|-----------------------|------------------------------------|
+| mont_mul         | K1  mont_mul.cu       | pallas_field.py::mont_mul          |
+| ntt_ladder       | K2  ntt.cu            | pallas_field.py::ntt_ladder        |
+| ec_add           | K9  ec_add.cu         | pallas_field.py::ec_add, ec_add14  |
+| ec_add_mixed     | K10 ec_add_mixed.cu   | pallas_field.py::ec_add_mixed      |
+| ec_scan_mixed    | K11a ec_scan.cu       | ::ec_scan_mixed, ec_scan_mixed14   |
+| ec_scan_mixed_em | K12 ec_scan.cu        | ::ec_scan_mixed14_em               |
+| ec_sum_steps     | K11b ec_sum.cu        | ::ec_sum_steps, ec_sum_steps14     |
+| ec_scan_excl     | K4  ec_scan_excl.cu   | ::ec_scan_excl14                   |
+| ec_double_add    | K7  ec_double_add.cu  | ::ec_double_add14                  |
+| ec_combine       | K8  ec_combine.cu     | ::ec_combine14                     |
+| reduce_planes    | K13 reduce_planes.cu  | mxu_ntt.py::reduce_planes          |
 
 The JAX package's 14-bit kernels (R = 2^392, lazy 14-bit limbs) answer the
 TPU's missing 32x32->64 multiply; on Hopper one 32-bit-word engine gives
@@ -69,8 +72,9 @@ def _ptr(t):
 
 
 def _wrappers():
-    return (mont_mul, ntt_ladder, ec_add, ec_scan_mixed, ec_sum_steps,
-            ec_scan_excl, ec_double_add, ec_combine)
+    return (mont_mul, ntt_ladder, ec_add, ec_add_mixed, ec_scan_mixed,
+            ec_scan_mixed_em, ec_sum_steps, ec_scan_excl, ec_double_add,
+            ec_combine, reduce_planes)
 
 
 def reset_launches() -> None:
@@ -267,6 +271,36 @@ def ec_add(G1, p, q):
     return out
 
 
+# -- K10: complete mixed addition ---------------------------------------------------------
+
+def ec_add_mixed_plain(G1, p, q2):
+    """K10's plain version: DeviceG1's RCB15 mixed formula with K1's plain
+    mul."""
+    return G1.add_mixed_formula(p, q2, G1.F.mul_plain)
+
+
+def ec_add_mixed(G1, p, q2):
+    """p + (x2, y2) on (..., 24, N) Montgomery planes of one shape, q2
+    strictly affine (z = 1, never the identity)."""
+    if _is_cpu(*p, *q2):
+        return ec_add_mixed_plain(G1, p, q2)
+    _check_int32(*p, *q2)
+    shape = p[0].shape
+    if len(shape) < 2 or shape[-2] != 24:
+        raise ValueError(f"ec_add_mixed: expected (..., 24, N), got {shape}")
+    for c in p + q2:
+        if c.shape != shape or not c.is_contiguous():
+            raise ValueError("ec_add_mixed: operands must be contiguous, "
+                             "one shape")
+    out = tuple(torch.empty_like(p[0]) for _ in range(3))
+    rc = _build.lib().dt_ec_add_mixed(*(_ptr(c) for c in p + q2 + out),
+                                      math.prod(shape[:-2]), shape[-1],
+                                      _stream())
+    ec_add_mixed.launches += 1
+    _build.check(rc, "ec_add_mixed")
+    return out
+
+
 # -- K11a: mixed-add prefix scan -------------------------------------------------------
 
 def ec_scan_mixed_plain(G1, g):
@@ -287,10 +321,7 @@ def ec_scan_mixed(G1, g):
     the inclusive prefix sums ((cl, 24, lanes),)*3 from the identity."""
     if _is_cpu(g):
         return ec_scan_mixed_plain(G1, g)
-    _check_int32(g)
-    if g.dim() != 3 or g.shape[1] != 48 or not g.is_contiguous():
-        raise ValueError(f"ec_scan_mixed: expected contiguous (cl, 48, "
-                         f"lanes), got {tuple(g.shape)}")
+    _check_scan_input("ec_scan_mixed", g)
     cl, _, lanes = g.shape
     out = tuple(torch.empty((cl, 24, lanes), dtype=torch.int32,
                             device=g.device) for _ in range(3))
@@ -298,6 +329,37 @@ def ec_scan_mixed(G1, g):
                                        cl, lanes, _stream())
     ec_scan_mixed.launches += 1
     _build.check(rc, "ec_scan_mixed")
+    return out
+
+
+def _check_scan_input(name, g):
+    _check_int32(g)
+    if g.dim() != 3 or g.shape[1] != 48 or not g.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous (cl, 48, lanes), "
+                         f"got {tuple(g.shape)}")
+
+
+# -- K12: mixed-add prefix scan, element-major output ----------------------------------
+
+def ec_scan_mixed_em_plain(G1, g):
+    """K12's plain version: K11a's plain scan, re-laid-out element-major."""
+    ps = ec_scan_mixed_plain(G1, g)
+    return torch.cat(ps, dim=1).transpose(1, 2).contiguous()
+
+
+def ec_scan_mixed_em(G1, g):
+    """g (cl, 48, lanes) as for ec_scan_mixed -> (cl, lanes, 72): row
+    (s, lane) is that lane's running sum after step s, x, y, z as 24 limbs
+    each."""
+    if _is_cpu(g):
+        return ec_scan_mixed_em_plain(G1, g)
+    _check_scan_input("ec_scan_mixed_em", g)
+    cl, _, lanes = g.shape
+    out = torch.empty((cl, lanes, 72), dtype=torch.int32, device=g.device)
+    rc = _build.lib().dt_ec_scan_mixed_em(_ptr(g), _ptr(out), cl, lanes,
+                                          _stream())
+    ec_scan_mixed_em.launches += 1
+    _build.check(rc, "ec_scan_mixed_em")
     return out
 
 
@@ -415,6 +477,74 @@ def ec_combine(G1, g, c: int):
                                     lanes, _stream())
     ec_combine.launches += 1
     _build.check(rc, "ec_combine")
+    return out
+
+
+# -- K13: digit-product planes -> Fr Montgomery limbs ------------------------------------
+
+PLANES = 65            # product planes of two 33-digit balanced numbers
+RED_L = 17             # the reduction divides by R' = 2^(16 * 17)
+
+
+@lru_cache(maxsize=None)
+def _reduce_toeplitz(modulus: int, device: str):
+    """float64 Toeplitz matrices of the K13 reduction's two constant
+    products: (17, 17) for the low 17 columns of x * N'' (N'' = -p^-1 mod
+    2^272) and (34, 17) for m * p."""
+    npp = (-pow(modulus, -1, 1 << (16 * RED_L))) % (1 << (16 * RED_L))
+
+    def limbs(v):
+        return [(v >> (16 * i)) & MASK16 for i in range(RED_L)]
+
+    lo = torch.zeros(RED_L, RED_L, dtype=torch.float64)
+    mp = torch.zeros(2 * RED_L, RED_L, dtype=torch.float64)
+    for j in range(RED_L):
+        lo[j:, j] = torch.tensor(limbs(npp)[:RED_L - j], dtype=torch.float64)
+        mp[j:j + RED_L, j] = torch.tensor(limbs(modulus), dtype=torch.float64)
+    return lo.to(device), mp.to(device)
+
+
+def reduce_planes_plain(F, planes):
+    """K13's plain version, in int64: the signed carry sweep to 68 base-256
+    digits, then the wide Montgomery reduction by 2^272 as two constant
+    products (float64 Toeplitz matmuls, exact below 2^53) and one
+    conditional subtraction (mxu_ntt.py::_reduce_kernel, step for step)."""
+    p = planes.long()
+    carry_ = torch.zeros_like(p[..., 0, :])
+    digits = []
+    for s in range(PLANES):
+        v = p[..., s, :] + carry_
+        digits.append(v & 0xFF)
+        carry_ = v >> 8                          # arithmetic shift
+    digits += [carry_ & 0xFF, (carry_ >> 8) & 0xFF, (carry_ >> 16) & 0xFF]
+    d = torch.stack(digits, dim=-2)                            # (..., 68, N)
+    t = d[..., 0::2, :] | (d[..., 1::2, :] << 8)               # (..., 34, N)
+    lo, mp = _reduce_toeplitz(F.spec.modulus, str(planes.device))
+    m = _normalize(torch.matmul(lo, t[..., :RED_L, :].double()).long())
+    full = _normalize(t + torch.matmul(mp, m.double()).long())
+    return F._cond_sub_mod(full[..., RED_L:RED_L + 16, :]).to(torch.int32)
+
+
+def reduce_planes(F, planes):
+    """(..., 65, N) int32 product planes -> (..., 16, N) canonical Fr
+    Montgomery limbs, value (sum_s planes_s 2^(8s)) 2^-272 mod p; the total
+    must be non-negative and below 2^272 p.  One launch for all leading
+    rows."""
+    if _is_cpu(planes):
+        return reduce_planes_plain(F, planes)
+    _check_int32(planes)
+    if planes.dim() < 2 or planes.shape[-2] != PLANES or F.L != 16 \
+            or not planes.is_contiguous():
+        raise ValueError(f"reduce_planes: expected contiguous Fr (..., 65, "
+                         f"N) planes, got {tuple(planes.shape)}")
+    n = planes.shape[-1]
+    out = torch.empty(planes.shape[:-2] + (16, n), dtype=torch.int32,
+                      device=planes.device)
+    rc = _build.lib().dt_reduce_planes(_ptr(planes), _ptr(out),
+                                       math.prod(planes.shape[:-2]), n,
+                                       _stream())
+    reduce_planes.launches += 1
+    _build.check(rc, "reduce_planes")
     return out
 
 

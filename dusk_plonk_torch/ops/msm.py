@@ -10,13 +10,16 @@ with the 14-bit kernels merged into the port's one limb engine:
   3. a gather from the element-major point table (row i = (x_i, y_i), row
      n_pad + i = (x_i, -y_i): the digit sign folds into the index) into
      (cl, 48, lanes), then kernel K11a: a chunked inclusive prefix scan of
-     mixed additions, one lane per (row, chunk);
+     mixed additions, one lane per (row, chunk); with `config.ec_scan_em`
+     kernel K12, the same scan with element-major output (cl, lanes, 72),
+     as dusk_plonk_tpu/ops/msm.py:289-291 routes it;
   4. chunk offsets: kernel K4, the exclusive prefix of each row's chunk
      totals, one lane per row;
   5. the telescoped bucket reduction
        sum_d d B_d = NB P(N-1) - sum_{d<NB} P(t_d),
      with t_d from torch.searchsorted, the prefix reads P(t) = scan value +
-     chunk offset on K9, both levels of the bucket sum on K11b and
+     chunk offset on K9 (under K12 each scan value is one contiguous
+     72-word row), both levels of the bucket sum on K11b and
      NB * full_sum - sum on K7;
   6. the window combine: on the host in C++ (native.g1_combine_windows)
      for the prover's commits, as the JAX prover does, or kernel K8 on the
@@ -62,6 +65,7 @@ class MsmPlan:
         self.num_windows = -(-257 // c)
         self.nb = 1 << (c - 1)
         self.chunk_len = min(cfg.msm_chunk_len, n)
+        self.scan_em = cfg.ec_scan_em
         # pad to a chunk multiple: zero scalars sort into bucket 0, which
         # the reduction never reads
         self.n_pad = -(-n // self.chunk_len) * self.chunk_len
@@ -135,12 +139,17 @@ class MsmPlan:
         g = em[order + n * ssign]                              # (R, N, 48)
         g = g.reshape(R, nc, cl, 48).permute(2, 3, 0, 1).reshape(
             cl, 48, lanes).contiguous()
-        ps = G1.scan_mixed(g)                                  # K11a
-
         # chunk offsets: exclusive prefix of each row's chunk totals, K4
         # over (nc steps, R lanes)
-        seq = tuple(c[-1].reshape(24, R, nc).permute(2, 0, 1).contiguous()
-                    for c in ps)                               # (nc, 24, R)
+        if self.scan_em:
+            ps_em = G1.scan_mixed_em(g)                        # K12
+            last = ps_em[-1].reshape(R, nc, 72).permute(1, 2, 0)
+            seq = tuple(last[:, 24 * i:24 * (i + 1)].contiguous()
+                        for i in range(3))                     # (nc, 24, R)
+        else:
+            ps = G1.scan_mixed(g)                              # K11a
+            seq = tuple(c[-1].reshape(24, R, nc).permute(2, 0, 1)
+                        .contiguous() for c in ps)             # (nc, 24, R)
         offsets = tuple(c.permute(1, 2, 0).reshape(24, lanes)
                         for c in G1.scan_excl(seq))            # (24, R*nc)
 
@@ -157,7 +166,12 @@ class MsmPlan:
         pi = (safe % cl).reshape(-1)
         lane = (torch.arange(R, device=dev)[:, None] * nc
                 + safe // cl).reshape(-1)
-        vals = tuple(c[pi, :, lane].T.contiguous() for c in ps)
+        if self.scan_em:
+            rows = ps_em.reshape(cl * lanes, 72)[pi * lanes + lane]
+            vals = tuple(rows[:, 24 * i:24 * (i + 1)].T.contiguous()
+                         for i in range(3))                    # (24, R*M)
+        else:
+            vals = tuple(c[pi, :, lane].T.contiguous() for c in ps)
         offs = tuple(c[:, lane].contiguous() for c in offsets)
         pts = G1.select(neg, G1.broadcast_identity((), R * M, dev),
                         G1.add(vals, offs))                    # (24, R*M)
