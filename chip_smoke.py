@@ -466,14 +466,47 @@ def phase_kernels(shapes):
               lambda: kernels.ec_sum_steps_plain(G1, g), 5,
               ((steps + 1) * 72 * lanes * 4, steps * lanes * EC_ADD))
 
-    # K4: the chunk offsets, nc steps on one lane per (commit, window)
+    # K4: the chunk offsets, nc steps on one lane per (commit, window);
+    # limb for limb against the plain version in the kernel's block order,
+    # and in affine form against the sequential order (the JAX kernel's)
     nc = shapes["chunks"]
+    block = kernels._excl_block(nc)
     for lanes in (4 * W, 15 * W):
         g = proj_steps(nc, lanes)
-        check("ec_scan_excl", f"(steps={nc},lanes={lanes})",
+        check("ec_scan_excl", f"(steps={nc},lanes={lanes},block={block})",
               lambda: kernels.ec_scan_excl(G1, g),
-              lambda: kernels.ec_scan_excl_plain(G1, g), 3,
+              lambda: kernels.ec_scan_excl_plain(G1, g, block), 3,
               (2 * nc * 72 * lanes * 4, (nc - 1) * lanes * EC_ADD))
+        err = max_abs_err(G1.affine(kernels.ec_scan_excl(G1, g)),
+                          G1.affine(kernels.ec_scan_excl_plain(G1, g)))
+        say("kernels", kernel="ec_scan_excl", case=f"(steps={nc},"
+            f"lanes={lanes})", max_abs_err_affine_vs_sequential=err)
+        if err != 0:
+            raise AssertionError(f"ec_scan_excl lanes={lanes}: not the "
+                                 f"sequential scan's points ({err})")
+        results["ec_scan_excl"]["max_abs_err_affine_vs_sequential"] = err
+
+    # chunk-length sweep for a later choice of msm_chunk_len: K11a on
+    # W n_pad / cl lanes a commit and K4 on n_pad / cl steps, B = 1 and 4
+    sweep = []
+    for cl in (64, 128, 256):
+        steps = -(-shapes["srs"] // cl)
+        for B in (1, 4):
+            lanes = W * steps * B
+            idx = torch.randint(0, 64, (cl * lanes,), generator=gen).to(dev)
+            g = torch.cat([aff[0][:, idx], aff[1][:, idx]]).reshape(
+                48, cl, lanes).permute(1, 0, 2).contiguous()
+            ge = proj_steps(steps, W * B)
+            scan_ms = cuda_ms(lambda: kernels.ec_scan_mixed(G1, g), 3)
+            excl_ms = cuda_ms(lambda: kernels.ec_scan_excl(G1, ge), 3)
+            sweep.append({"cl": cl, "B": B, "scan_lanes": lanes,
+                          "excl_steps": steps,
+                          "excl_block": kernels._excl_block(steps),
+                          "ec_scan_mixed_ms": scan_ms,
+                          "ec_scan_excl_ms": excl_ms,
+                          "sum_ms": scan_ms + excl_ms})
+            del g, ge
+    say("kernels", chunk_sweep=sweep)
 
     # K7: NB * full_sum - sum, 2^(c-1) = 2^k doublings
     kd = shapes["nb_log2"]
@@ -866,14 +899,16 @@ def main():
         path = counts
         for key in PATH.get(name, ("proof",)):
             path = path.get(key, {})
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces,
-                     "launches": path.get(WRAPPER[name]),
-                     "max_abs_err": r.get("max_abs_err"),
-                     "case": r.get("case"), "ms": r.get("ms"),
-                     "plain_ms": r.get("plain_ms"),
-                     "bound_ms": r.get("bound_ms"),
-                     "bound_by": r.get("bound_by"), "library_ms": None})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": path.get(WRAPPER[name]),
+               "max_abs_err": r.get("max_abs_err"), "case": r.get("case"),
+               "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+               "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+               "library_ms": None}
+        if "max_abs_err_affine_vs_sequential" in r:
+            row["max_abs_err_affine_vs_sequential"] = \
+                r["max_abs_err_affine_vs_sequential"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

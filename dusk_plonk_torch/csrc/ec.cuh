@@ -36,10 +36,11 @@ struct G1Proj {
 };
 
 __device__ __forceinline__ void g1_set_identity(G1Proj& p) {
+  const uint32_t one[12] = FQ_ONE_WORDS;
 #pragma unroll
   for (int i = 0; i < 12; i++) {
     p.x[i] = 0;
-    p.y[i] = FQ_ONE[i];
+    p.y[i] = one[i];
     p.z[i] = 0;
   }
 }

@@ -18,16 +18,24 @@
 // to three (cl, 24, lanes) planes (K11a) or to one (cl, lanes, 72) array
 // (K12): row (s, lane) holds x, y, z as 24 limbs each.
 //
-// Bound on the H100: integer ALU and registers (11 Fq Montgomery
-// multiplies per step) -- the TPU kernel carried the accumulator in VMEM
-// across a sequential grid axis; here the step loop runs inside the thread
-// and the 36-word accumulator never leaves registers.  Design: one thread
-// per lane; each step reads 48 words and writes 72.  Reads are coalesced
-// (neighbouring threads on neighbouring lanes); K12's writes are 72
-// contiguous words a thread, so one warp's step fills one contiguous 9 KB
-// span.  __launch_bounds__(128) allows 255 registers a thread for the
-// RCB15 temporaries.  Parallelism is the lane count (commits x windows x
-// chunks), which the MSM keeps in the thousands.
+// Bound on the H100: the latency of one thread's chain of 256 dependent
+// mixed adds (11 Fq multiplies each), not the card's throughput: at the
+// proof's 5,140-20,560 lanes the kernel runs at 8-25% of the 32-bit
+// multiply rate, and the time grows little with the lane count.  The TPU
+// kernel carried the accumulator in VMEM across a sequential grid axis;
+// here the step loop runs inside the thread and the 36-word accumulator
+// never leaves registers.  Design: one thread per lane, the step-by-step
+// order of the JAX kernel (so the output is its plain version's, limb for
+// limb), and the chain made short in time instead: the Fq multiply, whose
+// dependent word steps set the step time, runs on two interleaved PTX
+// carry chains with immediate modulus words (field.cuh).  Each step
+// reads 48 words and writes 72.  Reads are coalesced (neighbouring threads
+// on neighbouring lanes); K12's writes are 72 contiguous words a thread,
+// so one warp's step fills one contiguous 9 KB span.
+// __launch_bounds__(128): 182 registers (K12 192), no spill; (128, 3)
+// caps them at 168 and spills, and was slower.  K11a runs 128-thread
+// blocks, K12 64-thread blocks: more resident warps per SM made K12's
+// row stores faster on the card and did not change K11a.
 
 #include "ec.cuh"
 
@@ -64,7 +72,7 @@ template <bool EM>
 static int launch(const void* g, void* ox, void* oy, void* oz, int cl,
                   int64_t lanes, void* stream) {
   if (lanes > 0 && cl > 0) {
-    int threads = 128;
+    int threads = EM ? 64 : 128;
     int64_t blocks = (lanes + threads - 1) / threads;
     ec_scan_mixed_kernel<EM><<<(unsigned)blocks, threads, 0,
                                (cudaStream_t)stream>>>(

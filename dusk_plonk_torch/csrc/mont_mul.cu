@@ -7,8 +7,9 @@
 // Bound on the H100: integer ALU.  One Fr multiply is 128 32x32->64
 // multiply-adds against 96 bytes of traffic (a, b, out), so the SMs'
 // integer pipes, not HBM, set the rate at every size the prover uses.
-// Design: one thread per element, the whole CIOS loop in registers
-// (field.cuh), no shared memory.  Operands may broadcast: each input has
+// Design: one thread per element, the whole multiply in registers
+// (field.cuh: the CIOS loop for Fr, carry-flag chains for Fq), no shared
+// memory.  Operands may broadcast: each input has
 // its own (row, limb, element) strides, and a stride of 0 reuses one
 // element, so an (L, 1) scalar never expands into an (L, N) copy.
 // Neighbouring threads read neighbouring elements of each limb plane.

@@ -408,26 +408,79 @@ def ec_sum_steps(G1, g):
     return out
 
 
-def ec_scan_excl_plain(G1, g):
-    """K4's plain version: out_0 = identity, out_s = out_{s-1} + g_{s-1}."""
+def _excl_block(steps: int):
+    """K4's block shape for `steps` steps: (T, m), T threads a lane (a power
+    of two, at most 128) each owning a run of m consecutive steps, T m >=
+    steps."""
+    T = min(128, 1 << max(0, steps - 1).bit_length())
+    return T, -(-steps // T)
+
+
+def ec_scan_excl_plain(G1, g, block=None):
+    """K4's plain version: out_0 = identity, out_s = out_{s-1} + g_{s-1}.
+
+    block=None: the sequential loop, the JAX kernel's order.  block=(T, m):
+    the kernel's order, each pass batched over all runs and lanes: the sum
+    of each run of m steps from the identity, a Hillis-Steele scan of the T
+    run totals (v_r <- v_{r-d} + v_r), then each run's prefixes from its
+    exclusive offset.  The same group elements, other representatives."""
     steps, _, lanes = g[0].shape
-    acc = G1.broadcast_identity((), lanes, g[0].device)
+    mul = G1.F.mul_plain
+    if block is None:
+        acc = G1.broadcast_identity((), lanes, g[0].device)
+        outs = []
+        for s in range(steps):
+            outs.append(acc)
+            acc = G1.add_formula(acc, tuple(c[s] for c in g), mul)
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+    T, m = block
+    if T * m < steps:
+        raise ValueError(f"ec_scan_excl: block {block} misses steps")
+    first = torch.arange(T, device=g[0].device) * m      # run r's first step
+
+    def run_step(j):
+        """Step j of every run: (in range, (T, 24, lanes) points)."""
+        s = first + j
+        gs = tuple(c[s.clamp(max=steps - 1)] for c in g)
+        return (s < steps)[:, None, None], gs
+
+    ident = G1.broadcast_identity((T,), lanes, g[0].device)
+    acc = ident
+    for j in range(m):                                   # 1. run totals
+        valid, gs = run_step(j)
+        acc = tuple(torch.where(valid, n, a) for n, a in
+                    zip(G1.add_formula(acc, gs, mul), acc))
+    d = 1
+    while d < T:                                         # 2. block scan
+        new = G1.add_formula(tuple(c[:-d] for c in acc),
+                             tuple(c[d:] for c in acc), mul)
+        acc = tuple(torch.cat([c[:d], n]) for c, n in zip(acc, new))
+        d <<= 1
+    acc = tuple(torch.cat([i[:1], c[:-1]]) for i, c in zip(ident, acc))
     outs = []
-    for s in range(steps):
+    for j in range(m):                                   # 3. prefixes
         outs.append(acc)
-        acc = G1.add_formula(acc, tuple(c[s] for c in g), G1.F.mul_plain)
-    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+        if j + 1 < m:
+            # past the end of a run the sums only reach steps >= `steps`,
+            # which are cut off below
+            acc = G1.add_formula(acc, run_step(j)[1], mul)
+    return tuple(torch.stack([o[i] for o in outs], dim=1)
+                 .reshape(T * m, 24, lanes)[:steps] for i in range(3))
 
 
 def ec_scan_excl(G1, g):
     """g ((steps, 24, lanes),)*3 -> ((steps, 24, lanes),)*3 exclusive
-    prefix sums per lane (identity at step 0), in one launch."""
+    prefix sums per lane (identity at step 0), in one launch of the
+    block-parallel scan (_excl_block); the CPU route runs the same order."""
+    steps = g[0].shape[0]
     if _is_cpu(*g):
-        return ec_scan_excl_plain(G1, g)
+        return ec_scan_excl_plain(G1, g, _excl_block(steps))
     shape = _check_points("ec_scan_excl", g, 3)
     out = _empty_points(shape, g[0])
-    rc = _build.lib().dt_ec_scan_excl(*(_ptr(c) for c in g + out), shape[0],
-                                      shape[-1], _stream())
+    T, m = _excl_block(steps)
+    rc = _build.lib().dt_ec_scan_excl(*(_ptr(c) for c in g + out), steps,
+                                      shape[-1], T, m, _stream())
     ec_scan_excl.launches += 1
     _build.check(rc, "ec_scan_excl")
     return out

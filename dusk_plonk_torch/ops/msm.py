@@ -14,7 +14,7 @@ with the 14-bit kernels merged into the port's one limb engine:
      kernel K12, the same scan with element-major output (cl, lanes, 72),
      as dusk_plonk_tpu/ops/msm.py:289-291 routes it;
   4. chunk offsets: kernel K4, the exclusive prefix of each row's chunk
-     totals, one lane per row;
+     totals, one lane per row (a block-parallel scan over its chunks);
   5. the telescoped bucket reduction
        sum_d d B_d = NB P(N-1) - sum_{d<NB} P(t_d),
      with t_d from torch.searchsorted, the prefix reads P(t) = scan value +
