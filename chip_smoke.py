@@ -35,8 +35,11 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -71,6 +74,13 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_runs(fn, reps, runs=5):
+    """(median, all): device ms per call of fn(), `runs` measurements of
+    `reps` back-to-back calls each by CUDA events, after one warm-up."""
+    ms = [cuda_ms(fn, reps) for _ in range(runs)]
+    return statistics.median(ms), ms
 
 
 def cuda_once(fn):
@@ -195,6 +205,34 @@ PROOF_FIELDS = ("a_comm", "b_comm", "c_comm", "d_comm", "z_comm",
 
 # -- phases ------------------------------------------------------------------------
 
+def ptxas_table(log_path):
+    """{kernel: {registers, spill_stores, spill_loads}} from the build
+    log's `nvcc -Xptxas -v` lines (kernel = mangled entry name)."""
+    table, cur = {}, None
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                cur = table.setdefault(m.group(1), {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur.update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m[1])
+    return table
+
+
+# the kernels whose registers and spills the env line names
+PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
+               "mont_mul_kernelILi12", "K2": "ntt_stage_kernel",
+               "K11b": "ec_sum_steps_kernel"}
+
+
 def phase_env():
     import torch
     from dusk_plonk_torch import native
@@ -206,14 +244,38 @@ def phase_env():
     _build.lib()
     build_s = time.perf_counter() - t0
     native.lib()                        # the host C++ engine, or raise
-    with open(_build.BUILD_LOG) as f:
-        regs = [ln.strip() for ln in f if "registers" in ln
-                or "spill" in ln or "Compiling entry" in ln]
+    ptxas = ptxas_table(_build.BUILD_LOG)
+    focus = {short: [v for k, v in ptxas.items() if key in k]
+             for short, key in PTXAS_FOCUS.items()}
+    if not all(len(v) == 1 for v in focus.values()):
+        raise AssertionError(f"ptxas: focus kernels not found once: {focus}")
     say("env", gpu=nvidia_smi_line(), torch=torch.__version__,
         cuda=torch.version.cuda, python=sys.version.split()[0],
         nvcc=nvcc.strip().splitlines()[-1], build_s=build_s,
         int_muls_per_s=int_mul_rate(), hbm_bytes_per_s=HBM_BYTES_PER_S,
-        ptxas=" | ".join(regs))
+        ptxas_focus={k: v[0] for k, v in focus.items()}, ptxas=ptxas)
+
+
+def mont_mul_entry(F, a, b):
+    """(launch, out): a closure that launches K1 on a, b through its C
+    entry point alone, as ops/kernels.py::mont_mul passes them, into one
+    preallocated output -- the kernel's device time without the wrapper's
+    host work (and without its launch count)."""
+    import math
+    import torch
+    from dusk_plonk_torch.ops import _build, kernels
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    ea, sa = kernels._row_strides(a, shape)
+    eb, sb = kernels._row_strides(b, shape)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    entry = _build.lib().dt_mont_mul
+    args = (F.L, kernels._ptr(ea), *sa, kernels._ptr(eb), *sb,
+            kernels._ptr(out), math.prod(shape[:-2]), shape[-1],
+            kernels._stream())
+
+    def launch():
+        _build.check(entry(*args), "mont_mul")
+    return launch, out
 
 
 def phase_kernels(shapes):
@@ -233,11 +295,11 @@ def phase_kernels(shapes):
     rate = int_mul_rate()
     results = {}
 
-    def record(name, key, out, ref, ms, plain_ms, work):
+    def record(name, key, out, ref, ms, plain_ms, work, **extra):
         err = max_abs_err(out, ref)
         bound_ms, bound_by = bound(*work, rate)
         say("kernels", kernel=name, case=key, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **extra)
         if err != 0:
             raise AssertionError(f"{name} {key}: kernel != plain ({err})")
         r = results.setdefault(name, {"max_abs_err": 0, "case": key,
@@ -251,23 +313,51 @@ def phase_kernels(shapes):
         ref, plain_ms = cuda_once(plain)
         record(name, key, out, ref, cuda_ms(fn, reps), plain_ms, work)
 
-    # K1: Fr at the 8n quotient width, Fq at the SRS packing width and at
-    # the JAX MSM's padded lane width
-    for F, shape in ((Fr, (1 << 19,)), (Fq, (shapes["srs"],)), (Fq, (5760,))):
-        a = rand_limbs(gen, F, shape, dev)
-        b = rand_limbs(gen, F, shape, dev)
-        n = shape[-1]
-        check("mont_mul", f"{F.spec.name}(L={F.L},N={n})",
-              lambda: F.mul(a, b), lambda: F.mul_plain(a, b), 20,
-              (3 * F.L * n * 4, n * (FR_MUL if F.L == 16 else FQ_MUL)))
+    # K1 at the proof's shapes: Fr at the 8n quotient width (one row, and
+    # the round-3 coset batch of 6 rows times one broadcast row), at the
+    # SRS width (ragged: n is odd), at n and at one element (LimbField.inv's
+    # square-and-multiply, most of K1's launches); an operand given as an
+    # offset view (unaligned: element by element); a (16, 1) scalar (the NTT
+    # scales, from_mont's one); Fq at the SRS packing width and at the JAX
+    # MSM's padded lane width.  Each time is the median of 5 measurements of
+    # 100 launches: `ms` of the C entry point alone (the kernel's device
+    # time), `wrapper_ms` through LimbField.mul, whose host work per call
+    # can exceed the kernel's time.
+    n19, n16, nsrs = 1 << 19, 1 << 16, shapes["srs"]
+    wide = rand_limbs(gen, Fr, (n16 + 1,), dev)
+    k1_cases = (
+        ("Fr(1,2^19)", Fr, (n19,), (n19,)),
+        ("Fr(6,2^19)x(16,2^19)", Fr, (6, n19), (n19,)),
+        (f"Fr(1,{nsrs})", Fr, (nsrs,), (nsrs,)),
+        ("Fr(1,2^16)", Fr, (n16,), (n16,)),
+        ("Fr(1,1)", Fr, (1,), (1,)),
+        ("Fr(1,2^16) offset view", Fr, None, (n16,)),
+        ("Fr(1,2^19)x(16,1)", Fr, (n19,), (1,)),
+        (f"Fq(1,{nsrs})", Fq, (nsrs,), (nsrs,)),
+        ("Fq(1,5760)", Fq, (5760,), (5760,)))
+    for key, F, sa, sb in k1_cases:
+        a = wide[:, 1:] if sa is None else rand_limbs(gen, F, sa, dev)
+        b = rand_limbs(gen, F, sb, dev)
+        out = F.mul(a, b)
+        ref, plain_ms = cuda_once(lambda: F.mul_plain(a, b))
+        launch, raw = mont_mul_entry(F, a, b)
+        med, runs = cuda_ms_runs(launch, 100)
+        wrapper_ms, wrapper_runs = cuda_ms_runs(lambda: F.mul(a, b), 100)
+        record("mont_mul", key, (out, raw), (ref, ref), med, plain_ms,
+               ((a.numel() + b.numel() + out.numel()) * 4,
+                out.numel() // F.L * (FR_MUL if F.L == 16 else FQ_MUL)),
+               ms_runs=runs, ms_spread=max(runs) - min(runs),
+               wrapper_ms=wrapper_ms, wrapper_ms_runs=wrapper_runs)
+        del a, b, out, ref, raw
 
-    # K2: the proof's transforms (round-3 coset pair at 8n, round-1 wire
-    # iNTTs at n), then dft / coset_dft at the widths of the JAX engine's
-    # batches, and key compilation's 11 + 4 selector and sigma iNTTs; kernel
-    # path vs the plain ladder, times are the k stages alone
+    # K2: the proof's five transforms (round-3 coset pair at 8n, the
+    # round-1 wire iNTTs at n, two single iNTTs at n), then dft / coset_dft
+    # at the widths of the JAX engine's batches, and key compilation's 11 +
+    # 4 selector and sigma iNTTs; kernel path vs the plain ladder, times
+    # are the k stages alone
     plans = {k: NttPlan(k, dev) for k in (16, 19)}
     for k, batch, kind in ((19, 6, "coset_dft"), (19, 1, "coset_idft"),
-                           (16, 4, "idft"), (16, 4, "dft"),
+                           (16, 4, "idft"), (16, 1, "idft"), (16, 4, "dft"),
                            (16, 4, "coset_dft"), (19, 2, "dft"),
                            (19, 2, "coset_dft"), (16, 11, "idft")):
         plan = plans[k]
@@ -456,15 +546,29 @@ def phase_kernels(shapes):
           (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED))
 
     # K11b: level 1 (sb steps on W * sa lanes a commit) and level 2 (sa
-    # steps on W lanes) of the bucket sum, for the proof's 4-commit batch
-    # and key compilation's 15-commit batch
+    # steps on W lanes) of the bucket sum, at every batch a proof (B = 4,
+    # 1, 2), key compilation (B = 15) and msm_device (B = 1) launches;
+    # limb for limb against the plain version in the kernel's block order,
+    # and in affine form against the sequential order (the JAX kernel's)
     W, sa, sb = shapes["windows"], shapes["sa"], shapes["sb"]
-    for steps, lanes in ((sb, 4 * W * sa), (sa, 4 * W), (sb, 15 * W * sa)):
+    for steps, lanes in ([(sb, B * W * sa) for B in (4, 1, 2, 15)]
+                         + [(sa, B * W) for B in (4, 1, 2)]):
         g = proj_steps(steps, lanes)
-        check("ec_sum_steps", f"(steps={steps},lanes={lanes})",
-              lambda: kernels.ec_sum_steps(G1, g),
-              lambda: kernels.ec_sum_steps_plain(G1, g), 5,
+        block = kernels._sum_block(steps, lanes)
+        case = f"(steps={steps},lanes={lanes},block={block})"
+        check("ec_sum_steps", case, lambda: kernels.ec_sum_steps(G1, g),
+              lambda: kernels.ec_sum_steps_plain(G1, g, block), 5,
               ((steps + 1) * 72 * lanes * 4, steps * lanes * EC_ADD))
+        err = max_abs_err(G1.affine(kernels.ec_sum_steps(G1, g)),
+                          G1.affine(kernels.ec_sum_steps_plain(G1, g)))
+        say("kernels", kernel="ec_sum_steps", case=case,
+            max_abs_err_affine_vs_sequential=err)
+        if err != 0:
+            raise AssertionError(f"ec_sum_steps {case}: not the sequential "
+                                 f"sum's points ({err})")
+        r = results["ec_sum_steps"]
+        r["max_abs_err_affine_vs_sequential"] = max(
+            err, r.get("max_abs_err_affine_vs_sequential", 0))
 
     # K4: the chunk offsets, nc steps on one lane per (commit, window);
     # limb for limb against the plain version in the kernel's block order,
@@ -484,7 +588,9 @@ def phase_kernels(shapes):
         if err != 0:
             raise AssertionError(f"ec_scan_excl lanes={lanes}: not the "
                                  f"sequential scan's points ({err})")
-        results["ec_scan_excl"]["max_abs_err_affine_vs_sequential"] = err
+        r = results["ec_scan_excl"]
+        r["max_abs_err_affine_vs_sequential"] = max(
+            err, r.get("max_abs_err_affine_vs_sequential", 0))
 
     # chunk-length sweep for a later choice of msm_chunk_len: K11a on
     # W n_pad / cl lanes a commit and K4 on n_pad / cl steps, B = 1 and 4
@@ -584,10 +690,38 @@ def spot_check_srs(pp, tau, count, seed):
     return sorted(map(int, idx))
 
 
+# each kernel's launches a default 2^16 proof; phase full fails if they move
+LAUNCHES_PER_PROOF = {"mont_mul": 798, "ntt_ladder": 86, "ec_add": 4,
+                      "ec_scan_mixed": 4, "ec_sum_steps": 8,
+                      "ec_scan_excl": 4, "ec_double_add": 4}
+
+
+def count_mont_mul_classes():
+    """Wrap K1's C entry point so that each launch also counts under its
+    (field, rows, n) class; returns (the Counter, a function that restores
+    the entry point).  The package's own counter is untouched."""
+    from dusk_plonk_torch.ops import _build
+    lib = _build.lib()
+    entry = lib.dt_mont_mul
+    classes = collections.Counter()
+
+    def counted(limbs, *args):
+        rows, n = args[-3], args[-2]
+        classes[f"{'Fr' if limbs == 16 else 'Fq'}(rows={rows},n={n})"] += 1
+        return entry(limbs, *args)
+
+    lib.dt_mont_mul = counted
+
+    def restore():
+        lib.dt_mont_mul = entry
+    return classes, restore
+
+
 def phase_full(k):
     """bench.py's proof path: device setup, device key compilation, one
     warm and two timed proofs.  Each path's kernel launches are counted
-    from 0 just before it."""
+    from 0 just before it; K1's launches of the proofs also by (field,
+    rows, n) class."""
     import torch
     from dusk_plonk_torch.ops import kernels
     from dusk_plonk_torch.prelude import (
@@ -615,19 +749,25 @@ def phase_full(k):
         ns=engine.ns, n8=engine.n8, launches_setup=counts["setup"],
         launches_compile=counts["compile"])
 
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    proof, pis = prover.create_proof(rng, Bench(3))            # warm
-    warm = dict(engine.last_timings)
-    verifier.verify(proof, pis)
-    times, rounds = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        proof, pis = prover.create_proof(rng, Bench(3))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rounds.append(dict(engine.last_timings))
-    counts["proof"] = kernels.launch_counts()
+    classes, restore = count_mont_mul_classes()
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        proof, pis = prover.create_proof(rng, Bench(3))        # warm
+        warm = dict(engine.last_timings)
+        verifier.verify(proof, pis)
+        times, rounds = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proof, pis = prover.create_proof(rng, Bench(3))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rounds.append(dict(engine.last_timings))
+        counts["proof"] = kernels.launch_counts()
+    finally:
+        restore()
+    if sum(classes.values()) != counts["proof"]["mont_mul"]:
+        raise AssertionError("mont_mul classes do not add up to its count")
     t0 = time.perf_counter()
     verifier.verify(proof, pis)
     verify_s = time.perf_counter() - t0
@@ -635,12 +775,10 @@ def phase_full(k):
     say("full", k=k, proof_s=times, best_s=times[best],
         rounds_best=rounds[best], rounds_warm=warm, verified=True,
         verify_s=verify_s, launches_proof=counts["proof"],
-        ec_add_per_proof=counts["proof"]["ec_add"] / 3,
-        ec_add_per_proof_pr1=604, best_s_pr2=[0.4908, 0.5394],
-        launches_per_proof_pr2={"mont_mul": 798, "ntt_ladder": 86,
-                                "ec_add": 4, "ec_scan_mixed": 4,
-                                "ec_sum_steps": 8, "ec_scan_excl": 4,
-                                "ec_double_add": 4},
+        mont_mul_per_proof_by_class={c: v / 3
+                                     for c, v in classes.most_common()},
+        mont_mul_per_proof=counts["proof"]["mont_mul"] / 3,
+        launches_per_proof_expected=LAUNCHES_PER_PROOF,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     need = {"setup": ("ec_add",),
             "compile": ("mont_mul", "ntt_ladder", "ec_add", "ec_scan_mixed",
@@ -652,6 +790,11 @@ def phase_full(k):
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
+    moved = {name: counts["proof"][name] / 3
+             for name, want in LAUNCHES_PER_PROOF.items()
+             if counts["proof"][name] != 3 * want}
+    if moved:
+        raise AssertionError(f"launches a proof moved: {moved}")
     return counts
 
 
@@ -692,7 +835,7 @@ def phase_msm(phase="msm", need=("ec_combine",)):
                              f"MSM")
     best = min(times)
     say(phase, n=n, scan_em=plan.scan_em, times_s=times, best_s=best,
-        points_per_s=n / best, best_s_pr2=0.04950, equal_to_host=True,
+        points_per_s=n / best, equal_to_host=True,
         launches=counts)
     missing = [name for name in need if counts[name] == 0]
     if missing:

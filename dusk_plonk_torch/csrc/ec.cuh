@@ -128,3 +128,36 @@ __device__ __forceinline__ void g1_add_mixed(G1Proj& r, const G1Proj& p,
     r.z[i] = z3[i];
   }
 }
+
+// -- points in limb planes and in shared memory ---------------------------------
+
+// a block's T shared point slots: word w of slot r sits at tot[w * T + r],
+// so a warp's accesses to one word of neighbouring slots hit 32 banks
+__device__ __forceinline__ void put_point(uint32_t* tot, int T, int r,
+                                          const G1Proj& p) {
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    tot[i * T + r] = p.x[i];
+    tot[(12 + i) * T + r] = p.y[i];
+    tot[(24 + i) * T + r] = p.z[i];
+  }
+}
+
+__device__ __forceinline__ void get_point(G1Proj& p, const uint32_t* tot,
+                                          int T, int r) {
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    p.x[i] = tot[i * T + r];
+    p.y[i] = tot[(12 + i) * T + r];
+    p.z[i] = tot[(24 + i) * T + r];
+  }
+}
+
+__device__ __forceinline__ void load_point(G1Proj& p, const uint32_t* gx,
+                                           const uint32_t* gy,
+                                           const uint32_t* gz, int64_t off,
+                                           int64_t lanes) {
+  load_limbs<12>(p.x, gx + off, lanes);
+  load_limbs<12>(p.y, gy + off, lanes);
+  load_limbs<12>(p.z, gz + off, lanes);
+}

@@ -30,37 +30,6 @@
 
 #include "ec.cuh"
 
-// word w of thread r's point sits at tot[w * T + r]: a warp's accesses to
-// one word hit 32 banks
-__device__ __forceinline__ void put_point(uint32_t* tot, int T, int r,
-                                          const G1Proj& p) {
-#pragma unroll
-  for (int i = 0; i < 12; i++) {
-    tot[i * T + r] = p.x[i];
-    tot[(12 + i) * T + r] = p.y[i];
-    tot[(24 + i) * T + r] = p.z[i];
-  }
-}
-
-__device__ __forceinline__ void get_point(G1Proj& p, const uint32_t* tot,
-                                          int T, int r) {
-#pragma unroll
-  for (int i = 0; i < 12; i++) {
-    p.x[i] = tot[i * T + r];
-    p.y[i] = tot[(12 + i) * T + r];
-    p.z[i] = tot[(24 + i) * T + r];
-  }
-}
-
-__device__ __forceinline__ void load_point(G1Proj& p, const uint32_t* gx,
-                                           const uint32_t* gy,
-                                           const uint32_t* gz, int64_t off,
-                                           int64_t lanes) {
-  load_limbs<12>(p.x, gx + off, lanes);
-  load_limbs<12>(p.y, gy + off, lanes);
-  load_limbs<12>(p.z, gz + off, lanes);
-}
-
 __global__ void __launch_bounds__(128)
 ec_scan_excl_kernel(const uint32_t* __restrict__ gx,
                     const uint32_t* __restrict__ gy,

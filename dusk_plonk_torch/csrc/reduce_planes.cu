@@ -52,13 +52,14 @@ reduce_planes_kernel(const int32_t* __restrict__ planes,
   t[16] |= ((uint32_t)carry & 0xffffffu) << 8;
 
   // Montgomery reduction by 2^272: eight 32-bit steps ...
+  const uint32_t p[8] = FR_P_WORDS;
 #pragma unroll
   for (int i = 0; i < 8; i++) {
     uint32_t m = t[i] * FR_N0;
     uint64_t c = 0;
 #pragma unroll
     for (int k = 0; k < 8; k++) {
-      c += (uint64_t)m * FR_P[k] + t[i + k];
+      c += (uint64_t)m * p[k] + t[i + k];
       t[i + k] = (uint32_t)c;
       c >>= 32;
     }
@@ -75,7 +76,7 @@ reduce_planes_kernel(const int32_t* __restrict__ planes,
     uint64_t c = 0;
 #pragma unroll
     for (int k = 0; k < 8; k++) {
-      c += (uint64_t)m * FR_P[k] + t[8 + k];
+      c += (uint64_t)m * p[k] + t[8 + k];
       t[8 + k] = (uint32_t)c;
       c >>= 32;
     }

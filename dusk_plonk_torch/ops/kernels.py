@@ -384,25 +384,89 @@ def _empty_points(shape, like):
                  for _ in range(3))
 
 
-def ec_sum_steps_plain(G1, g):
-    """K11b's plain version: acc = identity, then acc + g_s for each step
-    (RCB15 with K1's plain mul)."""
-    steps, _, lanes = g[0].shape
-    acc = G1.broadcast_identity((), lanes, g[0].device)
-    for s in range(steps):
-        acc = G1.add_formula(acc, tuple(c[s] for c in g), G1.F.mul_plain)
+def _run_steps(g, T: int, m: int, j: int):
+    """Step j of each of T runs of m consecutive steps: ((T, 1, 1) in
+    range, ((T, 24, lanes),)*3 points; a step past the end repeats the
+    last)."""
+    steps = g[0].shape[0]
+    s = torch.arange(T, device=g[0].device) * m + j
+    return (s < steps)[:, None, None], \
+        tuple(c[s.clamp(max=steps - 1)] for c in g)
+
+
+def _run_totals(G1, g, T: int, m: int):
+    """The sum of each run of m steps from the identity, steps past the end
+    skipped: ((T, 24, lanes),)*3 (the first phase of K11b and K4)."""
+    mul = G1.F.mul_plain
+    acc = G1.broadcast_identity((T,), g[0].shape[-1], g[0].device)
+    for j in range(m):
+        valid, gs = _run_steps(g, T, m, j)
+        acc = tuple(torch.where(valid, n, a) for n, a in
+                    zip(G1.add_formula(acc, gs, mul), acc))
     return acc
+
+
+def _check_block(name, block, steps):
+    T, m = block
+    if T < 1 or T * m < steps:
+        raise ValueError(f"{name}: block {block} misses steps")
+
+
+def ec_sum_steps_plain(G1, g, block=None):
+    """K11b's plain version: the sum along the step axis (RCB15 with K1's
+    plain mul).
+
+    block=None: acc = identity, then acc + g_s for each step, the JAX
+    kernel's order.  block=(T, m): the kernel's order, each pass batched
+    over all runs and lanes: the sum of each run of m steps from the
+    identity, then a tree over the T run totals (v_r <- v_r + v_{r+d} for
+    r = 0 mod 2d, d = 1, 2, .., T/2).  The same group element, another
+    representative."""
+    steps, _, lanes = g[0].shape
+    mul = G1.F.mul_plain
+    if block is None:
+        acc = G1.broadcast_identity((), lanes, g[0].device)
+        for s in range(steps):
+            acc = G1.add_formula(acc, tuple(c[s] for c in g), mul)
+        return acc
+    _check_block("ec_sum_steps", block, steps)
+    if block[0] & (block[0] - 1):
+        raise ValueError(f"ec_sum_steps: T = {block[0]} is no power of two")
+    acc = _run_totals(G1, g, *block)
+    while acc[0].shape[0] > 1:      # compacted: v_r, v_{r+d} stand side by side
+        acc = G1.add_formula(tuple(c[0::2] for c in acc),
+                             tuple(c[1::2] for c in acc), mul)
+    return tuple(c[0] for c in acc)
+
+
+# K11b threads in one wave on the H100: two 128-thread blocks (~188
+# registers a thread) on each of its 132 SMs
+SUM_FILL = 2 * 128 * 132
+
+
+def _sum_block(steps: int, lanes: int):
+    """K11b's block shape for `steps` steps on `lanes` lanes: (T, m), T
+    threads a lane each summing a run of m consecutive steps.  T is the
+    largest power of two with lanes * T <= SUM_FILL (the launch fits one
+    wave: a second wave costs more than the shorter chain saves), at least
+    1, at most 64 and at most `steps`; m = ceil(steps / T)."""
+    fit = max(SUM_FILL // max(lanes, 1), 1)
+    T = 1 << (min(fit, 64, max(steps, 1)).bit_length() - 1)
+    return T, -(-steps // T)
 
 
 def ec_sum_steps(G1, g):
     """g ((steps, 24, lanes),)*3 -> ((24, lanes),)*3, the sum along the
-    step axis from the identity, in one launch."""
+    step axis, in one launch of the block-parallel tree sum (_sum_block);
+    the CPU route runs the same order."""
+    steps, _, lanes = g[0].shape
+    block = _sum_block(steps, lanes)
     if _is_cpu(*g):
-        return ec_sum_steps_plain(G1, g)
-    steps, _, lanes = _check_points("ec_sum_steps", g, 3)
+        return ec_sum_steps_plain(G1, g, block)
+    _check_points("ec_sum_steps", g, 3)
     out = _empty_points((24, lanes), g[0])
     rc = _build.lib().dt_ec_sum_steps(*(_ptr(c) for c in g + out), steps,
-                                      lanes, _stream())
+                                      lanes, *block, _stream())
     ec_sum_steps.launches += 1
     _build.check(rc, "ec_sum_steps")
     return out
@@ -434,37 +498,24 @@ def ec_scan_excl_plain(G1, g, block=None):
             acc = G1.add_formula(acc, tuple(c[s] for c in g), mul)
         return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
+    _check_block("ec_scan_excl", block, steps)
     T, m = block
-    if T * m < steps:
-        raise ValueError(f"ec_scan_excl: block {block} misses steps")
-    first = torch.arange(T, device=g[0].device) * m      # run r's first step
-
-    def run_step(j):
-        """Step j of every run: (in range, (T, 24, lanes) points)."""
-        s = first + j
-        gs = tuple(c[s.clamp(max=steps - 1)] for c in g)
-        return (s < steps)[:, None, None], gs
-
-    ident = G1.broadcast_identity((T,), lanes, g[0].device)
-    acc = ident
-    for j in range(m):                                   # 1. run totals
-        valid, gs = run_step(j)
-        acc = tuple(torch.where(valid, n, a) for n, a in
-                    zip(G1.add_formula(acc, gs, mul), acc))
+    acc = _run_totals(G1, g, T, m)                       # 1. run totals
     d = 1
     while d < T:                                         # 2. block scan
         new = G1.add_formula(tuple(c[:-d] for c in acc),
                              tuple(c[d:] for c in acc), mul)
         acc = tuple(torch.cat([c[:d], n]) for c, n in zip(acc, new))
         d <<= 1
-    acc = tuple(torch.cat([i[:1], c[:-1]]) for i, c in zip(ident, acc))
+    ident = G1.broadcast_identity((1,), lanes, g[0].device)
+    acc = tuple(torch.cat([i, c[:-1]]) for i, c in zip(ident, acc))
     outs = []
     for j in range(m):                                   # 3. prefixes
         outs.append(acc)
         if j + 1 < m:
             # past the end of a run the sums only reach steps >= `steps`,
             # which are cut off below
-            acc = G1.add_formula(acc, run_step(j)[1], mul)
+            acc = G1.add_formula(acc, _run_steps(g, T, m, j)[1], mul)
     return tuple(torch.stack([o[i] for o in outs], dim=1)
                  .reshape(T * m, 24, lanes)[:steps] for i in range(3))
 

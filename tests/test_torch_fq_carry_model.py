@@ -1,12 +1,15 @@
-"""The Fq arithmetic of dusk_plonk_torch/csrc/field.cuh (carry-flag chains:
-mont_mul<12>, add_mod<12>, sub_mod<12>) on the CPU.  csrc/ptx.cuh's PTX
-primitives are replaced by a host model of the carry flag; the rest of
-field.cuh compiles as it is with g++, and its results are held against
-Python integers on seeded inputs (random, 0, 1, q - 1 and their
-neighbours).  The model also fails on a carry flag read before it is set
-and on a carry of 1 that a new chain would drop.  The same sources run on
-the card in chip_smoke.py, where every EC kernel is held against its plain
-version."""
+"""The field arithmetic of dusk_plonk_torch/csrc/field.cuh (carry-flag
+chains: mont_mul, add_mod, sub_mod for Fq, NW = 12, and Fr, NW = 8) on the
+CPU.  csrc/ptx.cuh's PTX primitives are replaced by a host model of the
+carry flag; the rest of field.cuh compiles as it is with g++, and its
+results are held against Python integers on seeded inputs (random, 0, 1,
+p - 1 and their neighbours; for Fr also R mod r and R^2 mod r).  The model
+also fails on a carry flag read before it is set, on a carry of 1 that a
+new chain would drop and on a madc.hi that overflows.  The multiply's
+precondition is checked beyond canonical inputs: for any a < 2^(32 NW) - p
+and any b it gives the value of a word loop that keeps every carry.  The
+same sources run on the card in chip_smoke.py, where K1, K2 and every EC
+kernel are held against their plain versions."""
 
 import os
 import shutil
@@ -15,7 +18,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from dusk_plonk_torch.fields.constants import Q_MOD
+from dusk_plonk_torch.fields.constants import Q_MOD, R_MOD
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "dusk_plonk_torch", "csrc")
@@ -63,34 +66,42 @@ inline uint32_t mul_hi(uint32_t a, uint32_t b) {
   return (uint32_t)(((uint64_t)a * b) >> 32); }
 """
 
-# reads "a b" pairs of 12 hex words (little-endian word order) from stdin,
-# prints "mul add sub" for each
+# reads "a b" pairs of NW hex words (little-endian word order, NW = 8 or
+# 12 from argv) from stdin, prints "mul add sub" for each
 MAIN = r"""
 #define __device__
 #define __host__
 #define __constant__
 #define __forceinline__ inline
 #include <cstdio>
+#include <cstring>
 #include "field.cuh"
-int main() {
-  uint32_t a[12], b[12], r[12];
+template <int NW>
+int run() {
+  uint32_t a[NW], b[NW], r[NW];
   while (true) {
-    for (int i = 0; i < 12; i++) if (scanf("%x", &a[i]) != 1) return 0;
-    for (int i = 0; i < 12; i++) if (scanf("%x", &b[i]) != 1) return 1;
+    for (int i = 0; i < NW; i++) if (scanf("%x", &a[i]) != 1) return 0;
+    for (int i = 0; i < NW; i++) if (scanf("%x", &b[i]) != 1) return 1;
     for (int op = 0; op < 3; op++) {
-      if (op == 0) mont_mul<12>(r, a, b);
-      if (op == 1) add_mod<12>(r, a, b);
-      if (op == 2) sub_mod<12>(r, a, b);
-      for (int i = 0; i < 12; i++) printf("%x ", r[i]);
+      if (op == 0) mont_mul<NW>(r, a, b);
+      if (op == 1) add_mod<NW>(r, a, b);
+      if (op == 2) sub_mod<NW>(r, a, b);
+      for (int i = 0; i < NW; i++) printf("%x ", r[i]);
     }
     printf("\n");
   }
 }
+int main(int argc, char** argv) {
+  return argc > 1 && strcmp(argv[1], "8") == 0 ? run<8>() : run<12>();
+}
 """
 
+FIELDS = {12: Q_MOD, 8: R_MOD}
+OPS = ["mont_mul", "add_mod", "sub_mod"]
 
-def _words(x):
-    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
+
+def _words(x, nw):
+    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
 
 
 def _value(words):
@@ -124,21 +135,73 @@ def _inputs(seed, n):
     return pairs
 
 
-@pytest.mark.parametrize("op", ["mont_mul", "add_mod", "sub_mod"])
-def test_fq_carry_chains_match_python_integers(model, op):
-    pairs = _inputs(4, 3000)
-    text = "\n".join(" ".join(f"{w:x}" for w in _words(a) + _words(b))
+def _fr_inputs(seed, n):
+    rng = np.random.default_rng(seed)
+    R = 1 << 256
+    edge = [0, 1, 2, R_MOD - 1, R_MOD - 2, R % R_MOD, R * R % R_MOD,
+            (1 << 254) - 1, 1 << 254, R_MOD >> 1, (R_MOD >> 1) + 1]
+    pairs = [(a, b) for a in edge for b in edge]
+    pairs += [(int.from_bytes(rng.bytes(32), "little") % R_MOD,
+               int.from_bytes(rng.bytes(32), "little") % R_MOD)
+              for _ in range(n)]
+    return pairs
+
+
+def _run(model, nw, pairs):
+    """Each op's results as Python integers, one list per op."""
+    text = "\n".join(" ".join(f"{w:x}" for w in _words(a, nw) + _words(b, nw))
                      for a, b in pairs)
-    out = subprocess.run([str(model)], input=text, capture_output=True,
-                         text=True)
+    out = subprocess.run([str(model), str(nw)], input=text,
+                         capture_output=True, text=True)
     assert out.returncode == 0, out.stderr
-    rinv = pow(1 << 384, -1, Q_MOD)
-    want = {"mont_mul": lambda a, b: a * b * rinv % Q_MOD,
-            "add_mod": lambda a, b: (a + b) % Q_MOD,
-            "sub_mod": lambda a, b: (a - b) % Q_MOD}[op]
-    col = ["mont_mul", "add_mod", "sub_mod"].index(op)
     lines = out.stdout.split("\n")[:-1]
     assert len(lines) == len(pairs)
-    for (a, b), ln in zip(pairs, lines):
-        words = ln.split()[12 * col:12 * (col + 1)]
-        assert _value(words) == want(a, b), (hex(a), hex(b))
+    cols = [[] for _ in OPS]
+    for ln in lines:
+        words = ln.split()
+        for k in range(len(OPS)):
+            cols[k].append(_value(words[nw * k:nw * (k + 1)]))
+    return cols
+
+
+def _want(op, p, nw):
+    rinv = pow(1 << (32 * nw), -1, p)
+    return {"mont_mul": lambda a, b: a * b * rinv % p,
+            "add_mod": lambda a, b: (a + b) % p,
+            "sub_mod": lambda a, b: (a - b) % p}[op]
+
+
+def _check(model, nw, op, pairs):
+    got = _run(model, nw, pairs)[OPS.index(op)]
+    want = _want(op, FIELDS[nw], nw)
+    for (a, b), v in zip(pairs, got):
+        assert v == want(a, b), (hex(a), hex(b))
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_fq_carry_chains_match_python_integers(model, op):
+    _check(model, 12, op, _inputs(4, 3000))
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_fr_carry_chains_match_python_integers(model, op):
+    _check(model, 8, op, _fr_inputs(5, 3000))
+
+
+@pytest.mark.parametrize("nw", [8, 12])
+def test_mont_mul_beyond_canonical_matches_the_word_loop(model, nw):
+    """a < 2^(32 NW) - p, any b: (ab + Mp) / R with M = -ab p^-1 mod R,
+    then one conditional subtraction, as a loop that keeps every carry
+    computes it."""
+    p, R = FIELDS[nw], 1 << (32 * nw)
+    rng = np.random.default_rng(6 + nw)
+    top = R - p - 1
+    pairs = [(a, b) for a in (top, top - 1, p, p + 1) for b in (0, 1, R - 1)]
+    pairs += [(int.from_bytes(rng.bytes(4 * nw), "little") % (R - p),
+               int.from_bytes(rng.bytes(4 * nw), "little"))
+              for _ in range(2000)]
+    got = _run(model, nw, pairs)[0]
+    npr = -pow(p, -1, R) % R
+    for (a, b), v in zip(pairs, got):
+        t = (a * b + (a * b * npr % R) * p) // R
+        assert v == (t - p if t >= p else t), (hex(a), hex(b))

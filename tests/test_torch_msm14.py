@@ -57,10 +57,13 @@ def _split(st):
 
 
 def test_ec_sum_steps_plain_matches_ec_sum_steps14():
+    """Both of K11b's orders (sequential, and blocked as the CPU route
+    runs it) give K6's points."""
     g = _steps(31, 3)
+    want = _affine(_split(pf.ec_sum_steps14(_stacked(g), interpret=True)))
     got = _affine(kernels.ec_sum_steps(G1, g))
-    assert got == _affine(_split(pf.ec_sum_steps14(_stacked(g),
-                                                    interpret=True)))
+    assert got == want
+    assert _affine(kernels.ec_sum_steps_plain(G1, g)) == want
     assert got[2] is not None
 
 

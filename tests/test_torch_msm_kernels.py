@@ -88,15 +88,23 @@ def _host_mul(p, k):
 
 
 def test_ec_sum_steps_plain_matches_pallas_ec_sum_steps():
-    """K11b's plain version equals the 16-bit TPU kernel limb for limb
-    (the same RCB15 step order)."""
+    """K11b's sequential plain version (block=None) equals the 16-bit TPU
+    kernel limb for limb (the same RCB15 step order); the kernel's blocked
+    order, which the CPU route runs, gives the same points in affine
+    form."""
     g = _pack(_grid(3, 3), 3)
-    got = kernels.ec_sum_steps(G1, g)
+    got = kernels.ec_sum_steps_plain(G1, g)
     stacked = jnp.asarray(torch.cat(g, dim=1).numpy().astype(np.uint32))
-    want = pf.ec_sum_steps(stacked, interpret=True)
+    want = tuple(torch.from_numpy(np.asarray(b).astype(np.int32))
+                 for b in pf.ec_sum_steps(stacked, interpret=True))
     for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(),
-                                      np.asarray(b).astype(np.int32))
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    block = kernels._sum_block(3, LANES)
+    assert block == (2, 2)
+    blocked = kernels.ec_sum_steps(G1, g)
+    for a, b in zip(blocked, kernels.ec_sum_steps_plain(G1, g, block)):
+        assert torch.equal(a, b)
+    assert _affine(blocked) == _affine(want)
 
 
 def test_ec_sum_steps_plain_group_law():
