@@ -107,6 +107,7 @@ INT_MULS_PER_SM_CLOCK = 64    # 32-bit integer multiply(-add)s per SM per
 # NW^2 for a b, NW^2 for m p, NW for m = t_0 n'
 FR_MUL, FQ_MUL = 2 * 8 * 8 + 8, 2 * 12 * 12 + 12
 EC_ADD, EC_ADD_MIXED = 12 * FQ_MUL, 11 * FQ_MUL     # RCB15 complete / mixed
+EC_DBL = 8 * FQ_MUL                                 # RCB15 doubling (a = 0)
 # K13's wide Montgomery reduction by 2^272: eight 32-bit steps (m, then
 # m p over 8 words) and one 16-bit step
 REDUCE_PLANES = 8 * (1 + 8) + (1 + 8)
@@ -229,8 +230,8 @@ def ptxas_table(log_path):
 
 # the kernels whose registers and spills the env line names
 PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
-               "mont_mul_kernelILi12", "K2": "ntt_stage_kernel",
-               "K11b": "ec_sum_steps_kernel"}
+               "mont_mul_kernelILi12", "K2": "ntt_pass_kernel",
+               "K7": "ec_double_add_kernel", "K11b": "ec_sum_steps_kernel"}
 
 
 def phase_env():
@@ -285,7 +286,7 @@ def phase_kernels(shapes):
     import torch
     from dusk_plonk_torch.ops import kernels, mxu_ntt
     from dusk_plonk_torch.ops.limb import fr_field, fq_field
-    from dusk_plonk_torch.ops.ntt import NttPlan
+    from dusk_plonk_torch.ops.ntt import NttPlan, ladder_oracle
     from dusk_plonk_torch.ops.ec import device_g1
     from dusk_plonk_torch.prelude import ChaCha12Rng, PlonkParams
     from dusk_plonk_torch.utils import config
@@ -352,33 +353,59 @@ def phase_kernels(shapes):
 
     # K2: the proof's five transforms (round-3 coset pair at 8n, the
     # round-1 wire iNTTs at n, two single iNTTs at n), then dft / coset_dft
-    # at the widths of the JAX engine's batches, and key compilation's 11 +
-    # 4 selector and sigma iNTTs; kernel path vs the plain ladder, times
-    # are the k stages alone
-    plans = {k: NttPlan(k, dev) for k in (16, 19)}
+    # at the widths of the JAX engine's batches, key compilation's 11 + 4
+    # selector and sigma iNTTs, one transform each of the k = 7 proof, of
+    # one pass at its largest (k = 10) and of the smallest two-pass split
+    # (k = 11), and one 2^23 transform (a k = 20 proof's 8n domain).  Each
+    # whole transform (scales included) against the kernel's plain version
+    # and against the radix-2 ladder of earlier versions (scale, bit
+    # reversal, k stages, scale), limb for limb.  Bound: one
+    # read and one write of the data and each table once, or the butterfly
+    # and scale multiplies; `passes_bound_ms` counts the bytes of the
+    # passes made (each pass reads and writes the data, and its tables).
+    plans = {}
     for k, batch, kind in ((19, 6, "coset_dft"), (19, 1, "coset_idft"),
                            (16, 4, "idft"), (16, 1, "idft"), (16, 4, "dft"),
                            (16, 4, "coset_dft"), (19, 2, "dft"),
-                           (19, 2, "coset_dft"), (16, 11, "idft")):
+                           (19, 2, "coset_dft"), (16, 11, "idft"),
+                           (7, 4, "idft"), (10, 1, "coset_dft"),
+                           (11, 2, "coset_idft"), (23, 1, "coset_dft")):
+        if k not in plans:
+            plans[k] = NttPlan(k, dev)
         plan = plans[k]
         n = 1 << k
-        tw, pre, post = {
-            "dft": (plan.tw_fwd, plan.scale_one, plan.scale_one),
-            "coset_dft": (plan.tw_fwd, plan.scale_coset, plan.scale_one),
-            "coset_idft": (plan.tw_inv, plan.scale_one,
-                           plan.scale_coset_inv),
-            "idft": (plan.tw_inv, plan.scale_one, plan.scale_n_inv)}[kind]
         x = rand_limbs(gen, Fr, (batch, n), dev)
         out = getattr(plan, kind)(x)
-        br = Fr.mul_plain(x, pre).index_select(-1, plan.bitrev)
+        inverse = kind in ("idft", "coset_idft")
+        steps = plan.steps_inv if inverse else plan.steps_fwd
+        pre = plan.scale_coset if kind == "coset_dft" else None
+        post = {"idft": plan.scale_n_inv,
+                "coset_idft": plan.scale_coset_inv}.get(kind)
         ref, plain_ms = cuda_once(
-            lambda: kernels.ntt_ladder_plain(Fr, br, tw, k))
-        record("ntt_stage", f"{kind}(B={batch},k={k})", out,
-               Fr.mul_plain(ref, post),
-               cuda_ms(lambda: kernels.ntt_ladder(Fr, br, tw, k), 5),
-               plain_ms,
-               ((2 * batch + 1 / 2) * 16 * n * 4,
-                batch * k * (n // 2) * FR_MUL))
+            lambda: kernels.ntt_plain(Fr, x, k, steps, pre, post))
+        oracle = ladder_oracle(Fr, k, kind, x)
+        err_oracle = max_abs_err(out, oracle)
+        tables = sum(t.numel() * 4 for _, r, d in steps
+                     for t in (r, d) if t is not None)
+        scales = sum(t.numel() * 4 for t in (pre, post) if t is not None)
+        scale_muls = sum(n for t in (pre, post) if t is not None)
+        data = batch * 16 * n * 4
+        passes_bytes = len(steps) * 2 * data + tables + scales
+        record("ntt", f"{kind}(B={batch},k={k})", out, ref,
+               cuda_ms(lambda: getattr(plan, kind)(x), 5), plain_ms,
+               (2 * data + tables + scales,
+                batch * (k * (n // 2) + scale_muls) * FR_MUL),
+               passes=[(p.log_m, p.lines) for p in plan.passes],
+               passes_bound_ms=passes_bytes / HBM_BYTES_PER_S * 1e3,
+               max_abs_err_vs_ladder=err_oracle)
+        if err_oracle != 0:
+            raise AssertionError(f"ntt {kind} k={k}: != the ladder "
+                                 f"({err_oracle})")
+        r = results["ntt"]
+        r["max_abs_err_vs_ladder"] = max(err_oracle,
+                                         r.get("max_abs_err_vs_ladder", 0))
+        del x, out, ref, oracle
+    del plans[23]
 
     # K13: the four-step route's plane reduction at the alt path's
     # transform shapes (round 1's iNTTs at n, round 3's coset batch at 8n),
@@ -614,16 +641,32 @@ def phase_kernels(shapes):
             del g, ge
     say("kernels", chunk_sweep=sweep)
 
-    # K7: NB * full_sum - sum, 2^(c-1) = 2^k doublings
+    # K7: NB * full_sum - sum, 2^(c-1) = 2^k doublings; limb for limb
+    # against the plain version (the same doubling formula), and in affine
+    # form against the complete-add order (the JAX kernel's); an identity
+    # on lane 0 of a and of b
     kd = shapes["nb_log2"]
     for lanes in (4 * W, 15 * W):
-        a, b = proj(lanes), tuple(c.clone() for c in proj(lanes))
-        for c, i in zip(b, G1.identity(dev)):
+        a = tuple(c.clone() for c in proj(lanes))
+        b = tuple(c.clone() for c in proj(lanes))
+        for c, i in zip(a + b, G1.identity(dev) * 2):
             c[:, 0:1] = i
         check("ec_double_add", f"(k={kd},lanes={lanes})",
               lambda: kernels.ec_double_add(G1, a, b, kd),
               lambda: kernels.ec_double_add_plain(G1, a, b, kd), 5,
-              (3 * 72 * lanes * 4, (kd + 1) * lanes * EC_ADD))
+              (3 * 72 * lanes * 4, lanes * (kd * EC_DBL + EC_ADD)))
+        err = max_abs_err(
+            G1.affine(kernels.ec_double_add(G1, a, b, kd)),
+            G1.affine(kernels.ec_double_add_plain(G1, a, b, kd,
+                                                  doubling=False)))
+        say("kernels", kernel="ec_double_add", case=f"(k={kd},lanes="
+            f"{lanes})", max_abs_err_affine_vs_sequential=err)
+        if err != 0:
+            raise AssertionError(f"ec_double_add lanes={lanes}: not the "
+                                 f"complete-add order's points ({err})")
+        r = results["ec_double_add"]
+        r["max_abs_err_affine_vs_sequential"] = max(
+            err, r.get("max_abs_err_affine_vs_sequential", 0))
 
     # K8: the window combine of msm_device, W windows of c bits, one lane
     # per MSM
@@ -690,8 +733,13 @@ def spot_check_srs(pp, tau, count, seed):
     return sorted(map(int, idx))
 
 
-# each kernel's launches a default 2^16 proof; phase full fails if they move
-LAUNCHES_PER_PROOF = {"mont_mul": 798, "ntt_ladder": 86, "ec_add": 4,
+# each kernel's launches a default 2^16 proof; phase full fails if they
+# move.  K2 makes one launch a pass: of the proof's five transforms, the
+# (6, 2^19) coset_dft and the (1, 2^19) coset_idft take three passes, the
+# (4, 2^16) and two (1, 2^16) idfts two: 12 launches where the stage
+# kernel made 86.  The pre- and post-scales ride in those passes, so K1
+# lost its two launches a transform (798 - 10).
+LAUNCHES_PER_PROOF = {"mont_mul": 788, "ntt": 12, "ec_add": 4,
                       "ec_scan_mixed": 4, "ec_sum_steps": 8,
                       "ec_scan_excl": 4, "ec_double_add": 4}
 
@@ -781,9 +829,9 @@ def phase_full(k):
         launches_per_proof_expected=LAUNCHES_PER_PROOF,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     need = {"setup": ("ec_add",),
-            "compile": ("mont_mul", "ntt_ladder", "ec_add", "ec_scan_mixed",
+            "compile": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                         "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
-            "proof": ("mont_mul", "ntt_ladder", "ec_add", "ec_scan_mixed",
+            "proof": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                       "ec_sum_steps", "ec_scan_excl", "ec_double_add")}
     missing = [(path, name) for path, names in need.items()
                for name in names if counts[path][name] == 0]
@@ -908,7 +956,7 @@ def phase_alt(k):
             launches_proof=counts["proof"])
         on = ("mont_mul", "ec_add", "ec_scan_mixed_em", "ec_sum_steps",
               "ec_scan_excl", "ec_double_add", "reduce_planes")
-        off = ("ntt_ladder", "ec_scan_mixed")
+        off = ("ntt", "ec_scan_mixed")
         bad = [(path, name) for path in ("compile", "proof")
                for name in on if counts[path][name] == 0] + \
               [(path, name) for path in ("compile", "proof")
@@ -957,7 +1005,7 @@ def phase_alt(k):
 PR = "dusk_plonk_tpu/ops/pallas_field.py"
 SOURCES = {
     "mont_mul": ("dusk_plonk_torch/csrc/mont_mul.cu", f"{PR}:1314"),
-    "ntt_stage": ("dusk_plonk_torch/csrc/ntt.cu", f"{PR}:1409, {PR}:1458"),
+    "ntt": ("dusk_plonk_torch/csrc/ntt.cu", f"{PR}:1409, {PR}:1458"),
     "ec_add": ("dusk_plonk_torch/csrc/ec_add.cu",
                f"{PR}:337 (K9), {PR}:1177 (K5 ec_add14, merged)"),
     "ec_add_mixed": ("dusk_plonk_torch/csrc/ec_add_mixed.cu",
@@ -984,8 +1032,6 @@ SOURCES = {
 PATH = {"ec_combine": ("msm",), "ec_add_mixed": ("alt", "step_scan"),
         "ec_scan_mixed_em": ("alt", "proof"),
         "reduce_planes": ("alt", "proof")}
-WRAPPER = {name: name for name in SOURCES}
-WRAPPER["ntt_stage"] = "ntt_ladder"
 
 
 def main():
@@ -1043,14 +1089,15 @@ def main():
         for key in PATH.get(name, ("proof",)):
             path = path.get(key, {})
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": path.get(WRAPPER[name]),
+               "replaces": replaces, "launches": path.get(name),
                "max_abs_err": r.get("max_abs_err"), "case": r.get("case"),
                "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
                "library_ms": None}
-        if "max_abs_err_affine_vs_sequential" in r:
-            row["max_abs_err_affine_vs_sequential"] = \
-                r["max_abs_err_affine_vs_sequential"]
+        for key in ("max_abs_err_affine_vs_sequential",
+                    "max_abs_err_vs_ladder"):
+            if key in r:
+                row[key] = r[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,5 +1,6 @@
 // Complete G1 addition on BLS12-381 (y^2 = x^3 + 4), Renes-Costello-Batina
-// 2015 algorithm 7 (a = 0), over Fq in Montgomery form (field.cuh).
+// 2015 algorithm 7 (a = 0), and its doubling, algorithm 9, over Fq in
+// Montgomery form (field.cuh).
 //
 // The formula order follows dusk_plonk_tpu/ops/ec.py::DeviceG1._add_xla and
 // _add_mixed_xla (ec.py:120-199) step for step, and the multiply by
@@ -82,6 +83,38 @@ __device__ __forceinline__ void g1_add(G1Proj& r, const G1Proj& p,
   fq_mul(t0, t0, t3);
   fq_mul(z3, z3, t4);
   fq_add(z3, z3, t0);
+#pragma unroll
+  for (int i = 0; i < 12; i++) {
+    r.x[i] = x3[i];
+    r.y[i] = y3[i];
+    r.z[i] = z3[i];
+  }
+}
+
+// r = 2p, Renes-Costello-Batina 2015 algorithm 9 (a = 0, b3 = 12 through
+// fq_mul12): 8 multiplies against g1_add's 12, in the step order of
+// ec.py::DeviceG1.double_formula.  Complete: the identity (0, 1, 0) maps to
+// itself.  r may alias p.
+__device__ __forceinline__ void g1_dbl(G1Proj& r, const G1Proj& p) {
+  Fq t0, t1, t2, x3, y3, z3;
+  fq_mul(t0, p.y, p.y);
+  fq_add(z3, t0, t0);
+  fq_add(z3, z3, z3);
+  fq_add(z3, z3, z3);              // 8 y^2
+  fq_mul(t1, p.y, p.z);
+  fq_mul(t2, p.z, p.z);
+  fq_mul12(t2, t2);                // b3 z^2
+  fq_mul(x3, t2, z3);
+  fq_add(y3, t0, t2);
+  fq_mul(z3, t1, z3);
+  fq_add(t1, t2, t2);
+  fq_add(t2, t1, t2);              // 3 b3 z^2
+  fq_sub(t0, t0, t2);
+  fq_mul(y3, t0, y3);
+  fq_add(y3, x3, y3);
+  fq_mul(t1, p.x, p.y);
+  fq_mul(x3, t0, t1);
+  fq_add(x3, x3, x3);
 #pragma unroll
   for (int i = 0; i < 12; i++) {
     r.x[i] = x3[i];

@@ -3,17 +3,22 @@
 // Replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::ec_double_add14
 // (_ec_double_add14_kernel): the tail NB * full_sum - sum_d P(t_d) of the
 // Pippenger bucket reduction (ops/msm.py::MsmPlan._window_group_totals; the
-// caller negates b).  As in the TPU kernel, each doubling is the complete
-// addition a + a (no dedicated doubling formula), so the plain version's
-// loop of ec.cuh adds gives the same limbs.
+// caller negates b).  The TPU kernel doubles with the complete addition
+// a + a; here each doubling is ec.cuh's g1_dbl (RCB15 algorithm 9, 8 Fq
+// multiplies against 12), then one g1_add.  The output is the TPU kernel's
+// group element in another projective representative; the plain version
+// (ops/kernels.py::ec_double_add_plain, DeviceG1.double_formula) runs the
+// same formulas, so it agrees limb for limb.
 //
 // Input and output: three (24, lanes) planes per point.
 //
-// Bound on the H100: the serial chain of k + 1 dependent adds per lane.  At
-// the MSM's shape (k = 12 on one lane per (commit, window): 20 lanes a
+// Bound on the H100: the serial chain of k doublings and one add per lane.
+// At the MSM's shape (k = 12 on one lane per (commit, window): 20 lanes a
 // commit) a few warps run; neither HBM nor the card's ALU is near its
-// limit.  Design: one thread per lane; b is loaded only after the doubling
-// loop, so the loop keeps one point and the RCB15 temporaries live.
+// limit, so the chain's latency is the time.  Design: one thread per lane;
+// the cheaper doubling shortens the chain by a third; b is loaded only
+// after the doubling loop, so the loop keeps one point and the doubling's
+// temporaries live.
 
 #include "ec.cuh"
 
@@ -32,7 +37,7 @@ ec_double_add_kernel(const uint32_t* __restrict__ ax,
   load_limbs<12>(acc.x, ax + lane, lanes);
   load_limbs<12>(acc.y, ay + lane, lanes);
   load_limbs<12>(acc.z, az + lane, lanes);
-  for (int i = 0; i < k; i++) g1_add(acc, acc, acc);
+  for (int i = 0; i < k; i++) g1_dbl(acc, acc);
   G1Proj q;
   load_limbs<12>(q.x, bx + lane, lanes);
   load_limbs<12>(q.y, by + lane, lanes);

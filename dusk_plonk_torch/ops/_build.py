@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dt_mont_mul": [_I, _P, _I64, _I64, _I64, _P, _I64, _I64, _I64,
                     _P, _I64, _I64, _P],
-    "dt_ntt_stage": [_P, _P, _P, _I64, _I, _I, _P],
+    "dt_ntt_pass": [_P] * 5 + [_I64, _I, _I, _I] + [_I64] * 7 + [_I, _I, _P],
     "dt_ec_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "dt_ec_add_mixed": [_P] * 8 + [_I64, _I64, _P],
     "dt_ec_scan_mixed": [_P, _P, _P, _P, _I, _I64, _P],

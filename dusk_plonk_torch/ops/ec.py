@@ -3,7 +3,9 @@
 Counterpart of dusk_plonk_tpu/ops/ec.py.  Points are tuples (X, Y, Z) of
 (..., 24, N) int32 Montgomery limb tensors; identity = (0, 1, 0).  Addition
 is the complete RCB15 formula (a = 0), in the JAX package's step order, so
-raw projective outputs agree limb for limb.  `add` is kernel K9
+raw projective outputs agree limb for limb; `double_formula` is RCB15's
+doubling (K7 doubles with it, so K7's outputs are the JAX kernel's points
+in other representatives).  `add` is kernel K9
 (ops/kernels.py::ec_add) and `add_mixed` kernel K10 (ec_add_mixed; the
 MSM's mixed adds run inside its scan kernels instead).  The step-axis
 methods `scan_mixed`, `scan_mixed_em`, `sum_steps`, `scan_excl`,
@@ -136,6 +138,32 @@ class DeviceG1:
         t0 = mul(t0, t3)
         z3 = mul(z3, t4)
         z3 = F.add(z3, t0)
+        return (x3, y3, z3)
+
+    def double_formula(self, p, mul):
+        """2p by RCB15 algorithm 9 (a = 0, b3 = 12), 8 multiplies, with the
+        given field multiply; the identity maps to itself.  The step order
+        of csrc/ec.cuh::g1_dbl."""
+        F = self.F
+        x, y, z = p
+        t0 = mul(y, y)
+        z3 = F.add(t0, t0)
+        z3 = F.add(z3, z3)
+        z3 = F.add(z3, z3)                         # 8 y^2
+        t1 = mul(y, z)
+        t2 = mul(z, z)
+        t2 = self._mul12(F, t2)                    # b3 z^2
+        x3 = mul(t2, z3)
+        y3 = F.add(t0, t2)
+        z3 = mul(t1, z3)
+        t1 = F.add(t2, t2)
+        t2 = F.add(t1, t2)                         # 3 b3 z^2
+        t0 = F.sub(t0, t2)
+        y3 = mul(t0, y3)
+        y3 = F.add(x3, y3)
+        t1 = mul(x, y)
+        x3 = mul(t0, t1)
+        x3 = F.add(x3, x3)
         return (x3, y3, z3)
 
     def add_mixed(self, p, q2):

@@ -4,7 +4,7 @@ version and a launch counter.
 | wrapper          | kernel (csrc/)        | replaces (dusk_plonk_tpu/ops/)     |
 |------------------|-----------------------|------------------------------------|
 | mont_mul         | K1  mont_mul.cu       | pallas_field.py::mont_mul          |
-| ntt_ladder       | K2  ntt.cu            | pallas_field.py::ntt_ladder        |
+| ntt              | K2  ntt.cu            | pallas_field.py::ntt_ladder        |
 | ec_add           | K9  ec_add.cu         | pallas_field.py::ec_add, ec_add14  |
 | ec_add_mixed     | K10 ec_add_mixed.cu   | pallas_field.py::ec_add_mixed      |
 | ec_scan_mixed    | K11a ec_scan.cu       | ::ec_scan_mixed, ec_scan_mixed14   |
@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from functools import lru_cache
 
 import torch
@@ -72,7 +73,7 @@ def _ptr(t):
 
 
 def _wrappers():
-    return (mont_mul, ntt_ladder, ec_add, ec_add_mixed, ec_scan_mixed,
+    return (mont_mul, ntt, ec_add, ec_add_mixed, ec_scan_mixed,
             ec_scan_mixed_em, ec_sum_steps, ec_scan_excl, ec_double_add,
             ec_combine, reduce_planes)
 
@@ -151,12 +152,25 @@ def _normalize(t):
     return resolve_carries(fold(fold(t)))[0]
 
 
+# elements a call of mont_mul_plain takes at once: its int64 temporaries
+# take ~7 KB an element, so larger operands go in chunks along the
+# element axis (a 2^23-point oracle on the card)
+PLAIN_MUL_ELEMS = 1 << 21
+
+
 def mont_mul_plain(F, a, b):
     """K1's plain version: LimbField._mul_xla's separated Montgomery
     product T = ab; m = (T mod R) N' mod R; (T + mN) / R, then one
     conditional subtraction.  Computes in int64; returns int32."""
     L = F.L
-    a, b = torch.broadcast_tensors(a.long(), b.long())
+    a, b = torch.broadcast_tensors(a, b)
+    n = a.shape[-1]
+    step = max(PLAIN_MUL_ELEMS // max(a[..., 0, :1].numel(), 1), 1)
+    if n > step:
+        return torch.cat([mont_mul_plain(F, a[..., i:i + step],
+                                         b[..., i:i + step])
+                          for i in range(0, n, step)], dim=-1)
+    a, b = a.long(), b.long()
     t = _normalize(_antidiag(a[..., :, None, :] * b[..., None, :, :]))
     m = _normalize(_const_columns(F, "nprime", t[..., :L, :])[..., :L, :])
     full = _normalize(t + _const_columns(F, "mod", m))
@@ -200,11 +214,12 @@ def mont_mul(F, a, b):
     return out
 
 
-# -- K2: NTT butterfly stages -------------------------------------------------------
+# -- K2: multi-pass NTT ------------------------------------------------------------
 
 def ntt_ladder_plain(F, x, tw, k: int):
-    """K2's plain version: the k DIT stages of NttPlan._transform
-    (ntt.py:185-206) on bit-reversed (..., 16, n) input; tw (16, n/2)."""
+    """The radix-2 ladder of earlier versions, kept as the oracle of K2's
+    tests: the k DIT stages on bit-reversed (..., 16, n) input; tw (16,
+    n/2) holds the powers of the n-th root."""
     n = 1 << k
     j = torch.arange(n, device=x.device)
     for s in range(k):
@@ -217,28 +232,187 @@ def ntt_ladder_plain(F, x, tw, k: int):
     return x
 
 
-def ntt_ladder(F, x, tw, k: int):
-    """All k butterfly stages on bit-reversed (..., 16, 2^k) Fr limbs with
-    the (16, 2^(k-1)) stage-root power table `tw`: one K2 launch per
-    stage."""
-    if _is_cpu(x, tw):
-        return ntt_ladder_plain(F, x, tw, k)
-    _check_int32(x, tw)
+NTT_TILE = 2048        # elements of one K2 tile: 8 words each, 64 KB
+NTT_RUN = 8            # adjacent lines a tile reads or writes on a strided
+                       # side: one 32-byte sector in every limb plane
+NTT_ONE_PASS_K = 10    # one pass up to 2^10 points
+
+
+@dataclass(frozen=True)
+class NttPass:
+    """One K2 launch: an m-point DFT (m = 2^log_m) on each line of the
+    array, `lines` lines a tile.  Line l = hi D + lo holds its DFT position
+    a at hi in_a + lo in_b + a in_s of the input and writes its output
+    position c to hi out_a + lo out_b + c out_s.  `mid` is the order N of
+    the mid twiddle w_N^(lo c) applied to the output (0: none, the last
+    pass, which applies the post-scale instead)."""
+    log_m: int
+    lines: int
+    D: int
+    in_a: int
+    in_b: int
+    in_s: int
+    out_a: int
+    out_b: int
+    out_s: int
+    mid: int
+
+
+def ntt_passes(k: int, passes=None):
+    """K2's passes for a 2^k-point transform (the Bailey split, natural
+    order in and out).  One pass up to k = 10 (the tile is one transform);
+    above, the fewest passes P whose tiles hold NTT_RUN lines of at most
+    NTT_TILE / NTT_RUN = 256 points: P = ceil(k / 8), the levels split as
+    evenly as possible, the larger parts last (k = 16: 8 + 8; 19: 6 + 6 +
+    7; 23: 7 + 8 + 8), at most three (k <= 24; the line offsets below are
+    two-level).  `passes` forces the count (tests).  The shapes
+    depend on k alone: the batch is the launch grid's second axis.
+
+    With n = m_1 .. m_P, S_p = m_{p+1} .. m_P, L_p = m_1 .. m_{p-1}: pass p
+    < P takes the DFT over the digit of stride S_p in place on the L_p S_p
+    lines (q, b), q N_p + b (N_p = m_p S_p), C = min(8, S_p) adjacent b a
+    tile, and multiplies output c of line b by w_{N_p}^(b c).  The last
+    pass takes the rows (contiguous, m_P long) in the order of the output's
+    low digits c_1 + m_1 c_2 + .., reads row c_1 S_1 + c_2 S_2 + .. and
+    writes position c to (its line) + L_P c, C = min(8, m_1) adjacent c_1
+    a tile."""
+    max_log = (NTT_TILE // NTT_RUN).bit_length() - 1
+    P = passes or (1 if k <= NTT_ONE_PASS_K else -(-k // max_log))
+    if not 1 <= P <= 3 or (P > 1 and k < P) or \
+            (P == 1 and (1 << k) > NTT_TILE):
+        raise ValueError(f"ntt_passes: no {P}-pass plan for k = {k}")
+    logs = [(k + i) // P for i in range(P)]
+    out = []
+    for i, lm in enumerate(logs):
+        m = 1 << lm
+        S = 1 << sum(logs[i + 1:])
+        L = 1 << sum(logs[:i])
+        if i < P - 1:
+            C = min(NTT_RUN, S)
+            p = NttPass(lm, C, S, m * S, 1, S, m * S, 1, S, m * S)
+        else:
+            D = 1 << logs[0] if P > 1 else 1
+            C = min(NTT_RUN, D)
+            S1 = 1 << sum(logs[1:]) if P > 1 else 0
+            p = NttPass(lm, C, D, m, S1, 1, D, 1, L, 0)
+        if p.lines << lm > NTT_TILE:
+            raise ValueError(f"ntt_passes: k = {k} needs more passes")
+        out.append(p)
+    return tuple(out)
+
+
+def pack_words(limbs):
+    """(16, N) int32 16-bit limbs -> (N, 8) int32 32-bit words (each
+    element's 8 words adjacent, 32 bytes: K2's table layout)."""
+    w = limbs[0::2].long() | (limbs[1::2].long() << 16)
+    w = torch.where(w >= 1 << 31, w - (1 << 32), w)
+    return w.to(torch.int32).t().contiguous()
+
+
+def unpack_words(words):
+    """(N, 8) words -> (16, N) limbs, the inverse of pack_words."""
+    w = words.t()
+    return torch.stack([w & MASK16, (w >> 16) & MASK16], dim=1) \
+        .reshape(16, -1)
+
+
+@lru_cache(maxsize=None)
+def bitrev_indices(log_m: int, device: str):
+    idx = torch.arange(1 << log_m, dtype=torch.int64)
+    out = torch.zeros_like(idx)
+    for b in range(log_m):
+        out |= ((idx >> b) & 1) << (log_m - 1 - b)
+    return out.to(device)
+
+
+def _pass_index(p: NttPass, n: int, device):
+    """(src, dst, lo) of a pass: (lines, m) input and output positions,
+    and (lines, 1) the low part of each line index."""
+    m = 1 << p.log_m
+    line = torch.arange(n // m, device=device)[:, None]
+    a = torch.arange(m, device=device)[None]
+    hi, lo = line // p.D, line % p.D
+    return (hi * p.in_a + lo * p.in_b + a * p.in_s,
+            hi * p.out_a + lo * p.out_b + a * p.out_s, lo)
+
+
+def ntt_plain(F, x, k: int, steps, pre=None, post=None):
+    """K2's plain version: the kernel's passes in torch, each on all lines
+    at once.  steps: ((NttPass, roots (m/2, 8), mid (N, 8) or None),) as
+    NttPlan builds them; pre: (n, 8) table or None; post: (1, 8) scalar,
+    (n, 8) table or None (packed words)."""
     n = 1 << k
-    if x.shape[-2:] != (16, n) or tw.shape != (16, n // 2):
-        raise ValueError(f"ntt_ladder: bad shapes {x.shape}, {tw.shape}")
-    if not tw.is_contiguous():
-        raise ValueError("ntt_ladder: twiddle table must be contiguous")
+    y = x.reshape((-1, 16, n))
+    mul = F.mul_plain
+    for i, (p, roots, mid) in enumerate(steps):
+        src, dst, lo = _pass_index(p, n, x.device)
+        v = y[..., src].movedim(1, -2)                   # (B, lines, 16, m)
+        if i == 0 and pre is not None:
+            v = mul(v, unpack_words(pre)[:, src].movedim(0, -2))
+        v = v.index_select(-1, bitrev_indices(p.log_m, str(x.device)))
+        v = ntt_ladder_plain(F, v, unpack_words(roots), p.log_m)
+        c = torch.arange(1 << p.log_m, device=x.device)[None]
+        if p.mid:
+            v = mul(v, unpack_words(mid)[:, c * p.D + lo].movedim(0, -2))
+        elif post is not None:
+            scale = unpack_words(post)
+            v = mul(v, scale if post.shape[0] == 1
+                    else scale[:, dst].movedim(0, -2))
+        out = torch.empty_like(y)
+        out[..., dst] = v.movedim(-2, 1)
+        y = out
+    return y.reshape(x.shape)
+
+
+def _check_table(name, t, rows):
+    if t.dtype != torch.int32 or t.shape != (rows, 8) \
+            or not t.is_contiguous() or t.data_ptr() % 32:
+        raise ValueError(f"ntt: {name} must be a contiguous, 32-byte "
+                         f"aligned ({rows}, 8) int32 table, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def ntt(F, x, k: int, steps, pre=None, post=None):
+    """The DFT of (..., 16, 2^k) Fr Montgomery limbs along the element
+    axis, natural order in and out, with the pre-scale (before) and the
+    post-scale (after) folded in: one K2 launch a pass (ntt_passes).
+    Arguments as for ntt_plain."""
+    if _is_cpu(x, *(t for _, r, d in steps for t in (r, d) if t is not None)):
+        return ntt_plain(F, x, k, steps, pre, post)
+    _check_int32(x)
+    n = 1 << k
+    if x.shape[-2:] != (16, n):
+        raise ValueError(f"ntt: expected (..., 16, {n}), got {x.shape}")
+    if pre is not None:
+        _check_table("pre", pre, n)
+    if post is not None:
+        _check_table("post", post, post.shape[0])
+        if post.shape[0] not in (1, n):
+            raise ValueError("ntt: post must be a scalar or an n table")
     src = x.reshape(-1, 16, n).contiguous()
     batch = src.shape[0]
     bufs = (torch.empty_like(src), torch.empty_like(src))
     lib = _build.lib()
-    for s in range(k):
-        dst = bufs[s % 2]
-        rc = lib.dt_ntt_stage(_ptr(src), _ptr(dst), _ptr(tw), batch, k, s,
-                              _stream())
-        ntt_ladder.launches += 1
-        _build.check(rc, "ntt_stage")
+    null = ctypes.c_void_p(0)
+    for i, (p, roots, mid) in enumerate(steps):
+        _check_table("roots", roots, max((1 << p.log_m) // 2, 1))
+        if p.mid:
+            _check_table("mid", mid, p.mid)
+            post_t, post_mode = mid, 3
+        elif post is not None:
+            post_t, post_mode = post, 1 if post.shape[0] == 1 else 2
+        else:
+            post_t, post_mode = None, 0
+        pre_t = pre if i == 0 else None
+        dst = bufs[i % 2]
+        rc = lib.dt_ntt_pass(
+            _ptr(src), _ptr(dst), _ptr(roots),
+            null if pre_t is None else _ptr(pre_t),
+            null if post_t is None else _ptr(post_t), batch, k, p.log_m,
+            p.lines, p.D, p.in_a, p.in_b, p.in_s, p.out_a, p.out_b, p.out_s,
+            int(pre_t is not None), post_mode, _stream())
+        ntt.launches += 1
+        _build.check(rc, "ntt")
         src = dst
     return src.reshape(x.shape)
 
@@ -537,11 +711,15 @@ def ec_scan_excl(G1, g):
     return out
 
 
-def ec_double_add_plain(G1, a, b, k: int):
-    """K7's plain version: k doublings as complete adds a + a, then + b."""
+def ec_double_add_plain(G1, a, b, k: int, doubling=True):
+    """K7's plain version: k doublings by DeviceG1.double_formula, then + b
+    (the kernel's order).  doubling=False doubles with the complete add
+    a + a, the JAX kernel's order: the same group element in another
+    representative (compare in affine form)."""
     mul = G1.F.mul_plain
     for _ in range(k):
-        a = G1.add_formula(a, a, mul)
+        a = G1.double_formula(a, mul) if doubling \
+            else G1.add_formula(a, a, mul)
     return G1.add_formula(a, b, mul)
 
 
