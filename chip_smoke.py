@@ -9,7 +9,8 @@ Phases, one summary line each (more for kernels):
      source);
   2. kernels: every kernel against its plain PyTorch version, limb for
      limb, at the shapes the 2^16 proof, key compilation and MSM give it,
-     with both times;
+     with both times (K7 and K8 with their chains of dependent
+     multiplies), and the gathers around the MSM's K9 launch;
   3. small: at k = 7, device SRS setup equal to the host setup, device key
      compilation equal to the host compilation (verification key bytes),
      and a proof equal to the host oracle's field for field, verified;
@@ -108,6 +109,9 @@ INT_MULS_PER_SM_CLOCK = 64    # 32-bit integer multiply(-add)s per SM per
 FR_MUL, FQ_MUL = 2 * 8 * 8 + 8, 2 * 12 * 12 + 12
 EC_ADD, EC_ADD_MIXED = 12 * FQ_MUL, 11 * FQ_MUL     # RCB15 complete / mixed
 EC_DBL = 8 * FQ_MUL                                 # RCB15 doubling (a = 0)
+# Fq multiplies of one complete add and one doubling on one thread: the
+# length of their dependent chains (a team of threads runs either in two)
+ADD_MULS, DBL_MULS = 12, 8
 # K13's wide Montgomery reduction by 2^272: eight 32-bit steps (m, then
 # m p over 8 words) and one 16-bit step
 REDUCE_PLANES = 8 * (1 + 8) + (1 + 8)
@@ -231,7 +235,8 @@ def ptxas_table(log_path):
 # the kernels whose registers and spills the env line names
 PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
                "mont_mul_kernelILi12", "K2": "ntt_pass_kernel",
-               "K7": "ec_double_add_kernel", "K11b": "ec_sum_steps_kernel"}
+               "K7": "ec_double_add_kernel", "K11b": "ec_sum_steps_kernel",
+               "K8": "ec_combine_kernel", "K9": "ec_add_kernel"}
 
 
 def phase_env():
@@ -288,6 +293,7 @@ def phase_kernels(shapes):
     from dusk_plonk_torch.ops.limb import fr_field, fq_field
     from dusk_plonk_torch.ops.ntt import NttPlan, ladder_oracle
     from dusk_plonk_torch.ops.ec import device_g1
+    from dusk_plonk_torch.ops.msm import MsmPlan
     from dusk_plonk_torch.prelude import ChaCha12Rng, PlonkParams
     from dusk_plonk_torch.utils import config
     dev = torch.device("cuda")
@@ -493,35 +499,61 @@ def phase_kernels(shapes):
                 c[1, :, 2] = cn[:, 2]
         return g
 
-    # K9: the bucket-tail read width; identity, P + P and P + (-P) lanes
-    lanes = shapes["tails"]
-    p, q = proj(lanes), proj(lanes)
-    q = tuple(c.clone() for c in q)
+    # K9 at the bucket-tail read widths of one and of four 2^16 commits;
+    # identity, P + P and P + (-P) lanes
     ident = G1.identity(dev)
-    for c, i in zip(q, ident):
-        c[:, 0:1] = i                                   # P + O
-    for c, i in zip(p, ident):
-        c[:, 1:2] = i                                   # O + Q
-    for cp, cq, i in zip(p, q, ident):
-        cp[:, 2:3] = i
-        cq[:, 2:3] = i                                  # O + O
-    for cp, cq in zip(p, q):
-        cq[:, 3:8] = cp[:, 3:8]                         # P + P
-    negp = G1.neg(p)
-    for cq, cn in zip(q, negp):
-        cq[:, 8:13] = cn[:, 8:13]                       # P + (-P)
-    out = G1.add(p, q)
-    # group law on the special lanes: P + O = P, O + Q = Q, O + O = O,
-    # P + (-P) = O
-    got = G1.to_affine(tuple(c[:, :13] for c in out))
-    hp = G1.to_affine(tuple(c[:, :13] for c in p))
-    hq = G1.to_affine(tuple(c[:, :13] for c in q))
-    if (got[0] != hp[0] or got[1] != hq[1] or got[2] is not None
-            or any(got[i] is not None for i in range(8, 13))):
-        raise AssertionError("ec_add: group law violated on special lanes")
-    check("ec_add", f"lanes={lanes}", lambda: kernels.ec_add(G1, p, q),
-          lambda: kernels.ec_add_plain(G1, p, q), 20,
-          (9 * 24 * lanes * 4, lanes * EC_ADD))
+    for lanes in (shapes["tails"], 4 * shapes["tails"]):
+        p, q = proj(lanes), proj(lanes)
+        q = tuple(c.clone() for c in q)
+        for c, i in zip(q, ident):
+            c[:, 0:1] = i                                   # P + O
+        for c, i in zip(p, ident):
+            c[:, 1:2] = i                                   # O + Q
+        for cp, cq, i in zip(p, q, ident):
+            cp[:, 2:3] = i
+            cq[:, 2:3] = i                                  # O + O
+        for cp, cq in zip(p, q):
+            cq[:, 3:8] = cp[:, 3:8]                         # P + P
+        negp = G1.neg(p)
+        for cq, cn in zip(q, negp):
+            cq[:, 8:13] = cn[:, 8:13]                       # P + (-P)
+        out = G1.add(p, q)
+        # group law on the special lanes: P + O = P, O + Q = Q, O + O = O,
+        # P + (-P) = O
+        got = G1.to_affine(tuple(c[:, :13] for c in out))
+        hp = G1.to_affine(tuple(c[:, :13] for c in p))
+        hq = G1.to_affine(tuple(c[:, :13] for c in q))
+        if (got[0] != hp[0] or got[1] != hq[1] or got[2] is not None
+                or any(got[i] is not None for i in range(8, 13))):
+            raise AssertionError("ec_add: group law violated on special "
+                                 "lanes")
+        check("ec_add", f"lanes={lanes}", lambda: kernels.ec_add(G1, p, q),
+              lambda: kernels.ec_add_plain(G1, p, q), 20,
+              (9 * 24 * lanes * 4, lanes * EC_ADD))
+        del p, q, out, negp
+
+    # the gathers around the MSM's K9 launch (MsmPlan._tail_reads: scan
+    # values and chunk offsets at the bucket tails) and the identity select
+    # after it, at the shapes of one and four 2^16 commits, beside K9 on
+    # their output
+    plan = MsmPlan(shapes["srs"])
+    cl, nc, M = plan.chunk_len, shapes["chunks"], plan.nb + 1
+    for B in (1, 4):
+        R = B * shapes["windows"]
+        idx = torch.sort(torch.randint(-1, plan.n_pad, (R, M),
+                                       generator=gen), dim=-1).values.to(dev)
+        ps = tuple(rand_limbs(gen, Fq, (cl, R * nc), dev) for _ in range(3))
+        offsets = tuple(rand_limbs(gen, Fq, (R * nc,), dev)
+                        for _ in range(3))
+        neg, vals, offs = plan._tail_reads(idx, ps, offsets, nc)
+        summed = G1.add(vals, offs)
+        ident_rm = G1.broadcast_identity((), R * M, dev)
+        say("kernels", tail_reads=f"(B={B},lanes={R * M})",
+            gathers_ms=cuda_ms(lambda: plan._tail_reads(idx, ps, offsets,
+                                                        nc), 10),
+            select_ms=cuda_ms(lambda: G1.select(neg, ident_rm, summed), 10),
+            ec_add_ms=cuda_ms(lambda: G1.add(vals, offs), 10))
+        del ps, offsets, vals, offs, summed
 
     # K10: DeviceG1.add_mixed at the JAX MSM's per-step scan width (W nc
     # lanes of a 2^10-point MSM) and at the bucket-tail width; lane 0 adds
@@ -651,10 +683,14 @@ def phase_kernels(shapes):
         b = tuple(c.clone() for c in proj(lanes))
         for c, i in zip(a + b, G1.identity(dev) * 2):
             c[:, 0:1] = i
-        check("ec_double_add", f"(k={kd},lanes={lanes})",
-              lambda: kernels.ec_double_add(G1, a, b, kd),
-              lambda: kernels.ec_double_add_plain(G1, a, b, kd), 5,
-              (3 * 72 * lanes * 4, lanes * (kd * EC_DBL + EC_ADD)))
+        out = kernels.ec_double_add(G1, a, b, kd)
+        ref, plain_ms = cuda_once(
+            lambda: kernels.ec_double_add_plain(G1, a, b, kd))
+        ms = cuda_ms(lambda: kernels.ec_double_add(G1, a, b, kd), 5)
+        chain = kd * DBL_MULS + ADD_MULS          # one thread a lane
+        record("ec_double_add", f"(k={kd},lanes={lanes})", out, ref, ms,
+               plain_ms, (3 * 72 * lanes * 4, lanes * (kd * EC_DBL + EC_ADD)),
+               chain_muls=chain, us_per_chain_mul=ms * 1e3 / chain)
         err = max_abs_err(
             G1.affine(kernels.ec_double_add(G1, a, b, kd)),
             G1.affine(kernels.ec_double_add_plain(G1, a, b, kd,
@@ -668,14 +704,39 @@ def phase_kernels(shapes):
         r["max_abs_err_affine_vs_sequential"] = max(
             err, r.get("max_abs_err_affine_vs_sequential", 0))
 
-    # K8: the window combine of msm_device, W windows of c bits, one lane
-    # per MSM
+    # K8: the window combine of msm_device, W windows of c bits, on one
+    # lane (msm_device's B = 1, timed first), on three lanes (T_0 the
+    # identity on lane 0, T_1 = T_0 on lane 1, T_1 = -T_0 on lane 2) and on
+    # eleven: three blocks of five lanes, where the spare team of the first
+    # two reads a lane of the next block and the last block clamps.  Limb
+    # for limb against the plain version (the kernel's order: from T_0, c
+    # RCB15 doublings and one add a window), in affine form against the
+    # complete-add order from the identity (the JAX kernel's).  The chain:
+    # a team of six runs each doubling and add as two dependent multiplies
     c = shapes["window_bits"]
-    g = proj_steps(W, 1)
-    check("ec_combine", f"(W={W},c={c},lanes=1)",
-          lambda: kernels.ec_combine(G1, g, c),
-          lambda: kernels.ec_combine_plain(G1, g, c), 5,
-          ((W + 1) * 72 * 4, W * (c + 1) * EC_ADD))
+    chain = 2 * (c + 1) * (W - 1)
+    chain_before = W * (c + 1) * ADD_MULS   # the one-thread complete-add order
+    for lanes in (1, 3, 11):
+        g = proj_steps(W, lanes)
+        out = kernels.ec_combine(G1, g, c)
+        ref, plain_ms = cuda_once(lambda: kernels.ec_combine_plain(G1, g, c))
+        ms = cuda_ms(lambda: kernels.ec_combine(G1, g, c), 5)
+        case = f"(W={W},c={c},lanes={lanes})"
+        record("ec_combine", case, out, ref, ms, plain_ms,
+               ((W + 1) * 72 * lanes * 4,
+                lanes * ((W - 1) * (c * EC_DBL + EC_ADD))),
+               chain_muls=chain, chain_muls_before=chain_before,
+               us_per_chain_mul=ms * 1e3 / chain)
+        err = max_abs_err(G1.affine(out), G1.affine(
+            kernels.ec_combine_plain(G1, g, c, doubling=False)))
+        say("kernels", kernel="ec_combine", case=case,
+            max_abs_err_affine_vs_sequential=err)
+        if err != 0:
+            raise AssertionError(f"ec_combine {case}: not the complete-add "
+                                 f"order's points ({err})")
+        r = results["ec_combine"]
+        r["max_abs_err_affine_vs_sequential"] = max(
+            err, r.get("max_abs_err_affine_vs_sequential", 0))
     return results
 
 

@@ -162,6 +162,185 @@ __device__ __forceinline__ void g1_add_mixed(G1Proj& r, const G1Proj& p,
   }
 }
 
+// -- team operations -------------------------------------------------------------
+//
+// A team is T neighbouring threads of one warp (rank 0..T-1) that run one
+// doubling or one complete add together.  Each level of the formula's
+// independent multiplies is dealt out one multiply to a thread (in
+// ceil(M / T) rounds when the level has M > T), the products meet in the
+// team's shared scratch, and the modular adds between the levels run on
+// every thread of the team: a warp issues an instruction once whichever
+// of its threads run it, so the copies cost no issue slot and no thread
+// waits for another's sums.  A doubling (two levels of 4 multiplies) or an
+// add (two levels of 6) then takes two dependent multiplies and the adds,
+// against 8 or 12 multiplies on one thread.  Every value is the canonical
+// one of g1_dbl / g1_add (a Montgomery product is the same whichever
+// operand comes first), so the projective result is theirs limb for limb.
+//
+// Scratch: TEAM_SLOTS Fq slots a team, word-major across the block: word i
+// of the team's slot k is s[i * stride + k], where s points at the team's
+// first slot and `stride` counts the slots of the block, so the teams of
+// a warp touch neighbouring words.  Slots 0-5 take the first level's
+// products and 6-11 the second's; with one __syncwarp after each level no
+// thread overwrites a slot that another still reads, in this operation or
+// the next.  All 32 threads of the warp call every operation together:
+// a thread without a lane runs a copy of one and stores nothing.
+
+constexpr int TEAM_SLOTS = 12;
+
+__device__ __forceinline__ void put_slot(uint32_t* s, int stride, int k,
+                                         const Fq& v) {
+#pragma unroll
+  for (int i = 0; i < 12; i++) s[i * stride + k] = v[i];
+}
+
+__device__ __forceinline__ void get_slot(Fq& v, const uint32_t* s,
+                                         int stride, int k) {
+#pragma unroll
+  for (int i = 0; i < 12; i++) v[i] = s[i * stride + k];
+}
+
+// r = c ? a : b, word by word (r may alias a or b)
+__device__ __forceinline__ void fq_sel(Fq& r, bool c, const Fq& a,
+                                       const Fq& b) {
+#pragma unroll
+  for (int i = 0; i < 12; i++) r[i] = c ? a[i] : b[i];
+}
+
+// r = 2p on a team of T: g1_dbl's multiplies as two levels of four,
+//   level 1 (slots 0-3): y y, y z, z z, x y;
+//   level 2 (slots 6-9): 12 z^2 8 y^2, y z 8 y^2,
+//                         (y^2 - 36 z^2)(y^2 + 12 z^2), (y^2 - 36 z^2) x y.
+// r may alias p.
+template <int T>
+__device__ __forceinline__ void g1_dbl_team(G1Proj& r, const G1Proj& p,
+                                            int rank, uint32_t* s,
+                                            int stride) {
+#pragma unroll
+  for (int j0 = 0; j0 < 4; j0 += T) {
+    int j = j0 + rank;               // job; j >= 4 runs a copy, unstored
+    Fq a, b, t;
+    fq_sel(a, j == 2, p.z, p.y);
+    fq_sel(a, j >= 3, p.x, a);
+    fq_sel(b, j == 1 || j == 2, p.z, p.y);
+    fq_mul(t, a, b);
+    if (j < 4) put_slot(s, stride, j, t);
+  }
+  __syncwarp();
+  Fq t0, t1, t2, t3, z3, y3, u;
+  get_slot(t0, s, stride, 0);
+  get_slot(t1, s, stride, 1);
+  get_slot(t2, s, stride, 2);
+  get_slot(t3, s, stride, 3);
+  fq_add(z3, t0, t0);
+  fq_add(z3, z3, z3);
+  fq_add(z3, z3, z3);              // 8 y^2
+  fq_mul12(t2, t2);                // b3 z^2
+  fq_add(y3, t0, t2);
+  fq_add(u, t2, t2);
+  fq_add(u, u, t2);                // 3 b3 z^2
+  fq_sub(t0, t0, u);
+#pragma unroll
+  for (int j0 = 0; j0 < 4; j0 += T) {
+    int j = j0 + rank;
+    Fq a, b, t;
+    fq_sel(a, j == 1, t1, t0);
+    fq_sel(a, j == 0, t2, a);
+    fq_sel(b, j == 2, y3, t3);
+    fq_sel(b, j <= 1, z3, b);
+    fq_mul(t, a, b);
+    if (j < 4) put_slot(s, stride, 6 + j, t);
+  }
+  __syncwarp();
+  Fq x3, xy;
+  get_slot(x3, s, stride, 6);
+  get_slot(r.z, s, stride, 7);
+  get_slot(y3, s, stride, 8);
+  get_slot(xy, s, stride, 9);
+  fq_add(r.y, x3, y3);
+  fq_add(r.x, xy, xy);
+}
+
+// r = p + q on a team of T: g1_add's multiplies as two levels of six,
+//   level 1 (slots 0-5): x1 x2, y1 y2, z1 z2, (x1 + y1)(x2 + y2),
+//                         (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2);
+//   level 2 (slots 6-11): t4 y3, t3 t1, y3 t0, t1 z3, t0 t3, z3 t4 in
+//                         g1_add's names.
+// r may alias p or q.
+template <int T>
+__device__ __forceinline__ void g1_add_team(G1Proj& r, const G1Proj& p,
+                                            const G1Proj& q, int rank,
+                                            uint32_t* s, int stride) {
+#pragma unroll
+  for (int j0 = 0; j0 < 6; j0 += T) {
+    int j = j0 + rank;               // job; j >= 6 runs a copy, unstored
+    // first coordinate x, y, z, x, y, x; second (jobs 3-5) y, z, z
+    bool fy = j == 1 || j == 4, fz = j == 2, sy = j == 3;
+    Fq a, b, u, t;
+    fq_sel(a, fy, p.y, p.x);
+    fq_sel(a, fz, p.z, a);
+    fq_sel(u, sy, p.y, p.z);
+    fq_add(u, a, u);
+    fq_sel(a, j >= 3, u, a);
+    fq_sel(b, fy, q.y, q.x);
+    fq_sel(b, fz, q.z, b);
+    fq_sel(u, sy, q.y, q.z);
+    fq_add(u, b, u);
+    fq_sel(b, j >= 3, u, b);
+    fq_mul(t, a, b);
+    if (j < 6) put_slot(s, stride, j, t);
+  }
+  __syncwarp();
+  Fq t0, t1, t2, t3, t4, y3, z3, u;
+  get_slot(t0, s, stride, 0);
+  get_slot(t1, s, stride, 1);
+  get_slot(t2, s, stride, 2);
+  get_slot(t3, s, stride, 3);
+  get_slot(t4, s, stride, 4);
+  get_slot(y3, s, stride, 5);
+  fq_add(u, t0, t1);
+  fq_sub(t3, t3, u);               // x1y2 + x2y1
+  fq_add(u, t1, t2);
+  fq_sub(t4, t4, u);               // y1z2 + y2z1
+  fq_add(u, t0, t2);
+  fq_sub(y3, y3, u);               // x1z2 + x2z1
+  fq_add(u, t0, t0);
+  fq_add(t0, u, t0);               // 3 x1x2
+  fq_mul12(t2, t2);                // b3 z1z2
+  fq_add(z3, t1, t2);
+  fq_sub(t1, t1, t2);
+  fq_mul12(y3, y3);                // b3 (x1z2 + x2z1)
+#pragma unroll
+  for (int j0 = 0; j0 < 6; j0 += T) {
+    int j = j0 + rank;
+    // a: t4, t3, y3, t1, t0, z3; b: y3, t1, t0, z3, t3, t4
+    Fq a, b, t;
+    fq_sel(a, j == 4, t0, z3);
+    fq_sel(a, j == 3, t1, a);
+    fq_sel(a, j == 2, y3, a);
+    fq_sel(a, j == 1, t3, a);
+    fq_sel(a, j == 0, t4, a);
+    fq_sel(b, j == 4, t3, t4);
+    fq_sel(b, j == 3, z3, b);
+    fq_sel(b, j == 2, t0, b);
+    fq_sel(b, j == 1, t1, b);
+    fq_sel(b, j == 0, y3, b);
+    fq_mul(t, a, b);
+    if (j < 6) put_slot(s, stride, 6 + j, t);
+  }
+  __syncwarp();
+  Fq m0, m1;
+  get_slot(m0, s, stride, 6);
+  get_slot(m1, s, stride, 7);
+  fq_sub(r.x, m1, m0);
+  get_slot(m0, s, stride, 8);
+  get_slot(m1, s, stride, 9);
+  fq_add(r.y, m1, m0);
+  get_slot(m0, s, stride, 10);
+  get_slot(m1, s, stride, 11);
+  fq_add(r.z, m1, m0);
+}
+
 // -- points in limb planes and in shared memory ---------------------------------
 
 // a block's T shared point slots: word w of slot r sits at tot[w * T + r],

@@ -7,18 +7,25 @@
 // it reads the bucket tails, scan value + chunk offset; in
 // kzg/srs.py::PlonkParams.setup_device it sums the 32 window gathers.
 //
-// Bound on the H100: integer ALU and registers.  One add is 12 Fq
-// Montgomery multiplies (144 32x32->64 multiply-adds each) and ~20 modular
-// adds against 432 bytes of traffic.  Design: one thread per lane, the
-// whole RCB15 formula in registers (ec.cuh); the formula keeps ten 12-word
-// Fq temporaries plus both operands live, so __launch_bounds__(128) lets
-// each thread hold up to 255 registers and ptxas spills as little as it
-// can.  Inputs are (rows, 24, n) planes; lane (r, j) reads limb l at
-// r * 24 n + l n + j, so neighbouring threads read neighbouring words.
+// Bound on the H100: the integer multiply issue rate.  One add is 12 Fq
+// Montgomery multiplies (300 32x32->64 products each, a mad.lo and a
+// mad.hi instruction apiece) and ~20 modular adds against 432 bytes of
+// traffic, so the multiply instructions (~0.035 ms at 81,940 lanes) cost
+// more than the bytes (0.021 ms).  Design: one thread per lane, the whole
+// RCB15 formula in registers (ec.cuh::g1_add); neighbouring threads read
+// neighbouring words.  The formula keeps ten 12-word Fq temporaries plus
+// both operands live (186 registers unbounded: 2 blocks, 8 warps an SM,
+// too few to hide the carry chains); __launch_bounds__(128, 3) holds it
+// to 168 registers with a 32-byte spill for 12 warps an SM, 17% faster at
+// 81,940 lanes and 12% at 327,760 (tools/kernel_variants/k9_variants.py:
+// 4 blocks an SM at 128 registers, a team of threads a lane (about twice
+// the instructions a lane) and interleaved multiplies were all slower).
+// Inputs are (rows, 24, n) planes; lane (r, j) reads limb l at
+// r * 24 n + l n + j.
 
 #include "ec.cuh"
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, 3)
 ec_add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
               const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
               const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,

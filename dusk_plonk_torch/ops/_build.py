@@ -4,7 +4,9 @@
 per source, all started together, and links the objects into one shared
 library with a plain C interface, under `build/torch_kernels/` at the
 repository root (listed in .gitignore).  The build runs at first use, and
-again whenever a source is newer than the library.  Nothing here includes
+again whenever the build key -- a digest of every source, header and
+compiler flag, kept beside the library -- differs from the one the library
+was built with.  Nothing here includes
 PyTorch's headers, so a cold build takes seconds, not minutes.
 
 Every C entry point launches on the stream it is given and returns
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import shutil
 import subprocess
@@ -24,6 +27,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libdusk_torch_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
+KEY_PATH = LIB_PATH + ".key"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
@@ -66,12 +70,21 @@ def _nvcc() -> str:
     return found
 
 
+def build_key() -> str:
+    """Digest of the compiler flags and every csrc source and header."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC_DIR,
+                                                          "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
 def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+    if not (os.path.exists(LIB_PATH) and os.path.exists(KEY_PATH)):
         return True
-    built = os.path.getmtime(LIB_PATH)
-    deps = sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
-    return any(os.path.getmtime(p) > built for p in deps)
+    with open(KEY_PATH) as f:
+        return f.read() != build_key()
 
 
 def build() -> None:
@@ -79,6 +92,7 @@ def build() -> None:
     counts in BUILD_LOG), then link LIB_PATH.  Raises with the compiler's
     errors if any step fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    key = build_key()             # of the sources this build compiles
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     jobs = []
@@ -111,6 +125,9 @@ def build() -> None:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
     os.replace(tmp, LIB_PATH)     # atomic: concurrent builders never see half
+    with open(f"{KEY_PATH}.{tag}", "w") as f:
+        f.write(key)
+    os.replace(f"{KEY_PATH}.{tag}", KEY_PATH)
 
 
 def lib() -> ctypes.CDLL:

@@ -736,21 +736,35 @@ def ec_double_add(G1, a, b, k: int):
     return out
 
 
-def ec_combine_plain(G1, g, c: int):
-    """K8's plain version: from the identity, per window c doublings as
-    complete adds acc + acc, then + T_w (windows MSB first)."""
+def ec_combine_plain(G1, g, c: int, doubling=True):
+    """K8's plain version (windows MSB first): from T_0, per further window
+    c doublings by DeviceG1.double_formula, then + T_w (the kernel's
+    order).  doubling=False runs the JAX kernel's order: from the identity,
+    per window c doublings as complete adds acc + acc, then + T_w; the same
+    group element in another representative (compare in affine form)."""
     mul = G1.F.mul_plain
-    acc = G1.broadcast_identity((), g[0].shape[-1], g[0].device)
-    for w in range(g[0].shape[0]):
+    windows, _, lanes = g[0].shape
+    if not doubling:
+        acc = G1.broadcast_identity((), lanes, g[0].device)
+        for w in range(windows):
+            for _ in range(c):
+                acc = G1.add_formula(acc, acc, mul)
+            acc = G1.add_formula(acc, tuple(t[w] for t in g), mul)
+        return acc
+    acc = tuple(t[0].clone() for t in g)
+    for w in range(1, windows):
         for _ in range(c):
-            acc = G1.add_formula(acc, acc, mul)
+            acc = G1.double_formula(acc, mul)
         acc = G1.add_formula(acc, tuple(t[w] for t in g), mul)
     return acc
 
 
 def ec_combine(G1, g, c: int):
     """g ((W, 24, lanes),)*3 window totals, MSB window first ->
-    ((24, lanes),)*3 sum_w 2^(c (W-1-w)) T_w, in one launch."""
+    ((24, lanes),)*3 sum_w 2^(c (W-1-w)) T_w, in one launch (a team of six
+    threads a lane); the CPU route runs the same order.  W >= 1."""
+    if g[0].shape[0] < 1:
+        raise ValueError("ec_combine: no windows")
     if _is_cpu(*g):
         return ec_combine_plain(G1, g, c)
     windows, _, lanes = _check_points("ec_combine", g, 3)

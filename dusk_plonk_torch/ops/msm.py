@@ -161,18 +161,8 @@ class MsmPlan:
         idx = torch.cat([tails, torch.full((R, 1), n - 1, device=dev,
                                            dtype=torch.long)], dim=-1)
         M = NB + 1
-        neg = (idx < 0).reshape(-1)
-        safe = idx.clamp(min=0)
-        pi = (safe % cl).reshape(-1)
-        lane = (torch.arange(R, device=dev)[:, None] * nc
-                + safe // cl).reshape(-1)
-        if self.scan_em:
-            rows = ps_em.reshape(cl * lanes, 72)[pi * lanes + lane]
-            vals = tuple(rows[:, 24 * i:24 * (i + 1)].T.contiguous()
-                         for i in range(3))                    # (24, R*M)
-        else:
-            vals = tuple(c[pi, :, lane].T.contiguous() for c in ps)
-        offs = tuple(c[:, lane].contiguous() for c in offsets)
+        neg, vals, offs = self._tail_reads(idx, ps_em if self.scan_em
+                                           else ps, offsets, nc)
         pts = G1.select(neg, G1.broadcast_identity((), R * M, dev),
                         G1.add(vals, offs))                    # (24, R*M)
         grid = tuple(c.reshape(24, R, M) for c in pts)
@@ -192,6 +182,29 @@ class MsmPlan:
         # total = NB * full_sum - sum_d P(t_d), one K7 launch
         return G1.double_add(full_sum, G1.neg(cur), NB.bit_length() - 1)
 
+    def _tail_reads(self, idx, ps, offsets, nc):
+        """idx (R, M) prefix indices into each row's sorted points (-1:
+        none) -> (neg, vals, offs): which reads are the identity, and the
+        scan values and chunk offsets that K9 adds, ((24, R*M),)*3 each.
+        `ps` is K11a's output ((cl, 24, R*nc),)*3, or under scan_em K12's
+        (cl, R*nc, 72); `offsets` K4's ((24, R*nc),)*3."""
+        R = idx.shape[0]
+        cl = self.chunk_len
+        lanes = R * nc
+        neg = (idx < 0).reshape(-1)
+        safe = idx.clamp(min=0)
+        pi = (safe % cl).reshape(-1)
+        lane = (torch.arange(R, device=idx.device)[:, None] * nc
+                + safe // cl).reshape(-1)
+        if self.scan_em:
+            rows = ps.reshape(cl * lanes, 72)[pi * lanes + lane]
+            vals = tuple(rows[:, 24 * i:24 * (i + 1)].T.contiguous()
+                         for i in range(3))                    # (24, R*M)
+        else:
+            vals = tuple(c[pi, :, lane].T.contiguous() for c in ps)
+        offs = tuple(c[:, lane].contiguous() for c in offsets)
+        return neg, vals, offs
+
     # -- public ------------------------------------------------------------------
 
     def window_totals(self, em, limbs_stack):
@@ -209,7 +222,10 @@ class MsmPlan:
         """em: a prepare_points table; limbs (16, n) or (B, 16, n)
         canonical scalar limbs.  Returns the B results as projective
         ((24, B),)*3 device points: the window totals, then the window
-        combine on the device (kernel K8, one lane per MSM)."""
+        combine on the device (kernel K8, one lane per MSM).  K8 starts
+        from the top window's total and doubles with RCB15's doubling, so
+        the representative differs from the JAX kernel's: compare in
+        affine form."""
         if limbs.dim() == 2:
             limbs = limbs[None]
         B, W = limbs.shape[0], self.num_windows
