@@ -236,7 +236,11 @@ def ptxas_table(log_path):
 PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
                "mont_mul_kernelILi12", "K2": "ntt_pass_kernel",
                "K7": "ec_double_add_kernel", "K11b": "ec_sum_steps_kernel",
-               "K8": "ec_combine_kernel", "K9": "ec_add_kernel"}
+               "K8": "ec_combine_kernel", "K9": "ec_add_kernel",
+               "K10": "ec_add_mixed_kernelILi6E",
+               "K11a": "ec_scan_mixed_kernel", "K12": "ec_scan_em_kernel",
+               "K12 team 3": "ec_scan_em_team_kernelILi3E",
+               "K12 team 6": "ec_scan_em_team_kernelILi6E"}
 
 
 def phase_env():
@@ -281,6 +285,22 @@ def mont_mul_entry(F, a, b):
 
     def launch():
         _build.check(entry(*args), "mont_mul")
+    return launch, out
+
+
+def add_mixed_entry(p, q2):
+    """(launch, out): as mont_mul_entry, K10's C entry point alone on
+    p + q2."""
+    import math
+    import torch
+    from dusk_plonk_torch.ops import _build, kernels
+    out = tuple(torch.empty_like(p[0]) for _ in range(3))
+    entry = _build.lib().dt_ec_add_mixed
+    args = (*(kernels._ptr(c) for c in p + q2 + out),
+            math.prod(p[0].shape[:-2]), p[0].shape[-1], kernels._stream())
+
+    def launch():
+        _build.check(entry(*args), "ec_add_mixed")
     return launch, out
 
 
@@ -556,9 +576,14 @@ def phase_kernels(shapes):
         del ps, offsets, vals, offs, summed
 
     # K10: DeviceG1.add_mixed at the JAX MSM's per-step scan width (W nc
-    # lanes of a 2^10-point MSM) and at the bucket-tail width; lane 0 adds
-    # to the identity, lane 1 doubles (p = q), lane 2 gives the identity
-    # (p = -q)
+    # lanes of a 2^10-point MSM), and at 81,940 lanes, a launch that fills
+    # the card (no path launches K10 that wide); lane 0 adds to the
+    # identity, lane 1 doubles (p = q), lane 2 gives the identity (p = -q).
+    # `ms` is the C entry point alone, median of 5 x 100 launches from
+    # Python (the ctypes calls may hold the queue at 148 lanes:
+    # tools/kernel_variants/k12_variants.py times a C-side loop),
+    # `wrapper_ms` through DeviceG1.add_mixed; the chain counts dependent Fq
+    # multiplies on the team of six (levels of 5 and 6 products)
     one = Fq.const("one_mont", dev)
     for lanes in (shapes["step_lanes"], shapes["tails"]):
         p = tuple(c.clone() for c in proj(lanes))
@@ -577,10 +602,19 @@ def phase_kernels(shapes):
                 or got[2] is not None):
             raise AssertionError("ec_add_mixed: group law violated on "
                                  "special lanes")
-        check("ec_add_mixed", f"lanes={lanes}",
-              lambda: kernels.ec_add_mixed(G1, p, q2),
-              lambda: kernels.ec_add_mixed_plain(G1, p, q2), 20,
-              (8 * 24 * lanes * 4, lanes * EC_ADD_MIXED))
+        out = G1.add_mixed(p, q2)
+        ref, plain_ms = cuda_once(
+            lambda: kernels.ec_add_mixed_plain(G1, p, q2))
+        launch, raw = add_mixed_entry(p, q2)
+        med, runs = cuda_ms_runs(launch, 100)
+        wrapper_ms, wrapper_runs = cuda_ms_runs(
+            lambda: kernels.ec_add_mixed(G1, p, q2), 100)
+        record("ec_add_mixed", f"lanes={lanes}", (out, raw), (ref, ref), med,
+               plain_ms, (8 * 24 * lanes * 4, lanes * EC_ADD_MIXED), team=6,
+               ms_runs=runs, wrapper_ms=wrapper_ms,
+               wrapper_ms_runs=wrapper_runs, chain_muls=2,
+               us_per_chain_mul=med * 1e3 / 2)
+        del p, q2, out, ref, raw
 
     # K11a: the chunk scan of one 2^16 commit, of the proof's 4-commit
     # batch, and at the JAX MSM's padded lane width
@@ -594,15 +628,50 @@ def phase_kernels(shapes):
               lambda: kernels.ec_scan_mixed_plain(G1, g), 3,
               (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED))
 
-    # K12: the element-major chunk scan of one 2^16 commit (the alt path)
-    lanes = shapes["scan"]
-    idx = torch.randint(0, 64, (cl * lanes,), generator=gen).to(dev)
-    g = torch.cat([aff[0][:, idx], aff[1][:, idx]]).reshape(
-        48, cl, lanes).permute(1, 0, 2).contiguous()
-    check("ec_scan_mixed_em", f"(cl={cl},48,lanes={lanes})",
-          lambda: kernels.ec_scan_mixed_em(G1, g),
-          lambda: kernels.ec_scan_mixed_em_plain(G1, g), 3,
-          (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED))
+    # K12: the element-major chunk scan at the alt path's launches: an alt
+    # proof's B = 1, 2, 4 batches (5,140 lanes, also msm_device's; 10,280;
+    # 20,560) and key compilation's B = 15 (77,100), each on _scan_team's
+    # team (N threads a mixed add; 1: one thread a lane).  Limb for limb
+    # against the plain version (at 77,100 lanes on the first and last 512
+    # lanes alone: lanes are independent, and the whole plain scan would
+    # take minutes) and against K11a on the same input (both keep the
+    # sequential order)
+    for lanes in (shapes["scan"], 2 * shapes["scan"], 4 * shapes["scan"],
+                  15 * shapes["scan"]):
+        idx = torch.randint(0, 64, (cl * lanes,), generator=gen).to(dev)
+        g = torch.cat([aff[0][:, idx], aff[1][:, idx]]).reshape(
+            48, cl, lanes).permute(1, 0, 2).contiguous()
+        del idx
+        team = kernels._scan_team(lanes)
+        out = kernels.ec_scan_mixed_em(G1, g)
+        ms = cuda_ms(lambda: kernels.ec_scan_mixed_em(G1, g), 3)
+        sl = None if lanes <= 4 * shapes["scan"] else torch.cat(
+            [torch.arange(512), torch.arange(lanes - 512, lanes)]).to(dev)
+        gs = g if sl is None else g[:, :, sl].contiguous()
+        ref, plain_ms = cuda_once(
+            lambda: kernels.ec_scan_mixed_em_plain(G1, gs))
+        mine = out if sl is None else out[:, sl]
+        record("ec_scan_mixed_em", f"(cl={cl},48,lanes={lanes})", mine, ref,
+               ms, plain_ms, (cl * lanes * (48 + 72) * 4,
+                              cl * lanes * EC_ADD_MIXED),
+               team=team, chain_muls_a_step=(11 if team == 1 else
+                                             -(-5 // team) + -(-6 // team)),
+               plain_lanes=lanes if sl is None else len(sl))
+        del ref, gs
+        seq = kernels.ec_scan_mixed(G1, g)
+        if sl is not None:
+            seq = tuple(c[:, :, sl] for c in seq)
+        err = max_abs_err(tuple(mine[:, :, 24 * i:24 * (i + 1)]
+                                .transpose(1, 2) for i in range(3)), seq)
+        say("kernels", kernel="ec_scan_mixed_em",
+            case=f"(cl={cl},48,lanes={lanes})", team=team,
+            max_abs_err_vs_k11a=err)
+        if err != 0:
+            raise AssertionError(f"ec_scan_mixed_em lanes={lanes}: not "
+                                 f"K11a's scan ({err})")
+        r = results["ec_scan_mixed_em"]
+        r["max_abs_err_vs_k11a"] = max(err, r.get("max_abs_err_vs_k11a", 0))
+        del g, out, mine, seq
 
     # K11b: level 1 (sb steps on W * sa lanes a commit) and level 2 (sa
     # steps on W lanes) of the bucket sum, at every batch a proof (B = 4,
@@ -826,6 +895,33 @@ def count_mont_mul_classes():
     return classes, restore
 
 
+def time_scan_em_launches():
+    """Wrap K12's C entry point so that CUDA events on the launch stream
+    bracket each launch; returns (the list of (lanes, team, start, end)
+    marks, a function that restores the entry point).  The package's
+    launch counter is untouched."""
+    import torch
+    from dusk_plonk_torch.ops import _build
+    lib = _build.lib()
+    entry = lib.dt_ec_scan_mixed_em
+    marks = []
+
+    def timed(g, out, cl, lanes, team, stream):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = entry(g, out, cl, lanes, team, stream)
+        end.record()
+        marks.append((lanes, team, start, end))
+        return rc
+
+    lib.dt_ec_scan_mixed_em = timed
+
+    def restore():
+        lib.dt_ec_scan_mixed_em = entry
+    return marks, restore
+
+
 def phase_full(k):
     """bench.py's proof path: device setup, device key compilation, one
     warm and two timed proofs.  Each path's kernel launches are counted
@@ -910,7 +1006,8 @@ def phase_full(k):
 def phase_msm(phase="msm", need=("ec_combine",)):
     """bench.py's MSM metric: msm_device on 2^16 seeded points (tau^i G of
     a seeded device setup) and seeded scalars, best of 3, equal to the
-    host C++ MSM, under the config the caller set."""
+    host C++ MSM, under the config the caller set.  Returns (the launch
+    counts, the best time in s)."""
     import numpy as np
     import torch
     from dusk_plonk_torch import native
@@ -950,7 +1047,7 @@ def phase_msm(phase="msm", need=("ec_combine",)):
     if missing:
         raise AssertionError(f"{phase}: never launched by msm_device: "
                              f"{missing}")
-    return counts
+    return counts, best
 
 
 def phase_alt(k):
@@ -994,27 +1091,36 @@ def phase_alt(k):
             raise AssertionError("alt: verification key differs from the "
                                  "default config's")
         kernels.reset_launches()
-        times, rounds = [], []
-        for i in range(3):                          # the first is warm
-            t0 = time.perf_counter()
-            proof, pis = prover.create_proof(ChaCha12Rng.seed_from_u64(77),
-                                             Bench(3))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            rounds.append(dict(engine.last_timings))
-            if proof.to_bytes() != ref_bytes or pis != ref_pis:
-                raise AssertionError(f"alt: proof {i} differs from the "
-                                     f"default config's")
+        times, rounds, k12 = [], [], []
+        marks, restore = time_scan_em_launches()
+        try:
+            for i in range(3):                      # the first is warm
+                first = len(marks)
+                t0 = time.perf_counter()
+                proof, pis = prover.create_proof(
+                    ChaCha12Rng.seed_from_u64(77), Bench(3))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                rounds.append(dict(engine.last_timings))
+                k12.append([(lanes, team, s.elapsed_time(e))
+                            for lanes, team, s, e in marks[first:]])
+                if proof.to_bytes() != ref_bytes or pis != ref_pis:
+                    raise AssertionError(f"alt: proof {i} differs from the "
+                                         f"default config's")
+        finally:
+            restore()
         counts["proof"] = kernels.launch_counts()
         verifier.verify(proof, pis)
         verifier_a.verify(proof, pis)
         best = min((1, 2), key=lambda i: times[i])
+        k12_ms = [sum(ms for _, _, ms in k12[i]) for i in (1, 2)]
         say("alt", k=k, compile_s=compile_s,
             compile_steps=engine.compile_timings, vk_equal=True,
             proofs_equal_to_default=True, verified=True, proof_s=times[1:],
             warm_s=times[0], best_s=times[best], rounds_best=rounds[best],
             rounds_warm=rounds[0], launches_compile=counts["compile"],
-            launches_proof=counts["proof"])
+            launches_proof=counts["proof"], k12_ms_a_proof=k12_ms,
+            k12_launches_best=k12[best])
         on = ("mont_mul", "ec_add", "ec_scan_mixed_em", "ec_sum_steps",
               "ec_scan_excl", "ec_double_add", "reduce_planes")
         off = ("ntt", "ec_scan_mixed")
@@ -1025,8 +1131,9 @@ def phase_alt(k):
         if bad:
             raise AssertionError(f"alt: launches off their routes: {bad}")
         del prover, engine
-        counts["msm"] = phase_msm("alt_msm", ("ec_scan_mixed_em",
-                                              "ec_combine"))
+        counts["msm"], msm_s = phase_msm("alt_msm", ("ec_scan_mixed_em",
+                                                     "ec_combine"))
+        say("alt", k12_ms_a_proof=k12_ms, msm_device_ms=msm_s * 1e3)
         if counts["msm"]["ec_scan_mixed"]:
             raise AssertionError("alt_msm: K11a launched under ec_scan_em")
     finally:
@@ -1074,7 +1181,7 @@ SOURCES = {
     "ec_scan_mixed": ("dusk_plonk_torch/csrc/ec_scan.cu",
                       f"{PR}:769 (K11a), {PR}:926 (K3 ec_scan_mixed14, "
                       "merged)"),
-    "ec_scan_mixed_em": ("dusk_plonk_torch/csrc/ec_scan.cu",
+    "ec_scan_mixed_em": ("dusk_plonk_torch/csrc/ec_scan_em.cu",
                          f"{PR}:990 (K12 ec_scan_mixed14_em)"),
     "ec_sum_steps": ("dusk_plonk_torch/csrc/ec_sum.cu",
                      f"{PR}:839 (K11b), {PR}:1049 (K6 ec_sum_steps14)"),
@@ -1137,7 +1244,7 @@ def main():
         elif name == "full":
             counts.update(phase_full(K))
         elif name == "msm":
-            counts["msm"] = phase_msm()
+            counts["msm"] = phase_msm()[0]
         elif name == "alt":
             counts["alt"] = phase_alt(K)
         walls[name] = time.perf_counter() - t0

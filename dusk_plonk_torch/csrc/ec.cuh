@@ -165,17 +165,18 @@ __device__ __forceinline__ void g1_add_mixed(G1Proj& r, const G1Proj& p,
 // -- team operations -------------------------------------------------------------
 //
 // A team is T neighbouring threads of one warp (rank 0..T-1) that run one
-// doubling or one complete add together.  Each level of the formula's
+// doubling, complete add or mixed add together.  Each level of the formula's
 // independent multiplies is dealt out one multiply to a thread (in
 // ceil(M / T) rounds when the level has M > T), the products meet in the
 // team's shared scratch, and the modular adds between the levels run on
 // every thread of the team: a warp issues an instruction once whichever
 // of its threads run it, so the copies cost no issue slot and no thread
-// waits for another's sums.  A doubling (two levels of 4 multiplies) or an
-// add (two levels of 6) then takes two dependent multiplies and the adds,
-// against 8 or 12 multiplies on one thread.  Every value is the canonical
-// one of g1_dbl / g1_add (a Montgomery product is the same whichever
-// operand comes first), so the projective result is theirs limb for limb.
+// waits for another's sums.  A doubling (two levels of 4 multiplies), an
+// add (two levels of 6) or a mixed add (levels of 5 and 6) then takes two
+// dependent multiplies and the adds, against 8, 12 or 11 multiplies on one
+// thread.  Every value is the canonical one of g1_dbl / g1_add /
+// g1_add_mixed (a Montgomery product is the same whichever operand comes
+// first), so the projective result is theirs limb for limb.
 //
 // Scratch: TEAM_SLOTS Fq slots a team, word-major across the block: word i
 // of the team's slot k is s[i * stride + k], where s points at the team's
@@ -261,11 +262,49 @@ __device__ __forceinline__ void g1_dbl_team(G1Proj& r, const G1Proj& p,
   fq_add(r.x, xy, xy);
 }
 
+// The second level of g1_add_team and g1_add_mixed_team (RCB15's six
+// products t4 y3, t3 t1, y3 t0, t1 z3, t0 t3, z3 t4 in g1_add's names, in
+// slots 6-11) and the three sums that finish either formula:
+// X3 = t3 t1 - t4 y3, Y3 = t1 z3 + y3 t0, Z3 = z3 t4 + t0 t3.
+template <int T>
+__device__ __forceinline__ void team_add_level2(
+    G1Proj& r, const Fq& t0, const Fq& t1, const Fq& t3, const Fq& t4,
+    const Fq& y3, const Fq& z3, int rank, uint32_t* s, int stride) {
+#pragma unroll
+  for (int j0 = 0; j0 < 6; j0 += T) {
+    int j = j0 + rank;               // job; j >= 6 runs a copy, unstored
+    // a: t4, t3, y3, t1, t0, z3; b: y3, t1, t0, z3, t3, t4
+    Fq a, b, t;
+    fq_sel(a, j == 4, t0, z3);
+    fq_sel(a, j == 3, t1, a);
+    fq_sel(a, j == 2, y3, a);
+    fq_sel(a, j == 1, t3, a);
+    fq_sel(a, j == 0, t4, a);
+    fq_sel(b, j == 4, t3, t4);
+    fq_sel(b, j == 3, z3, b);
+    fq_sel(b, j == 2, t0, b);
+    fq_sel(b, j == 1, t1, b);
+    fq_sel(b, j == 0, y3, b);
+    fq_mul(t, a, b);
+    if (j < 6) put_slot(s, stride, 6 + j, t);
+  }
+  __syncwarp();
+  Fq m0, m1;
+  get_slot(m0, s, stride, 6);
+  get_slot(m1, s, stride, 7);
+  fq_sub(r.x, m1, m0);
+  get_slot(m0, s, stride, 8);
+  get_slot(m1, s, stride, 9);
+  fq_add(r.y, m1, m0);
+  get_slot(m0, s, stride, 10);
+  get_slot(m1, s, stride, 11);
+  fq_add(r.z, m1, m0);
+}
+
 // r = p + q on a team of T: g1_add's multiplies as two levels of six,
 //   level 1 (slots 0-5): x1 x2, y1 y2, z1 z2, (x1 + y1)(x2 + y2),
 //                         (y1 + z1)(y2 + z2), (x1 + z1)(x2 + z2);
-//   level 2 (slots 6-11): t4 y3, t3 t1, y3 t0, t1 z3, t0 t3, z3 t4 in
-//                         g1_add's names.
+//   level 2 (slots 6-11): team_add_level2.
 // r may alias p or q.
 template <int T>
 __device__ __forceinline__ void g1_add_team(G1Proj& r, const G1Proj& p,
@@ -310,35 +349,54 @@ __device__ __forceinline__ void g1_add_team(G1Proj& r, const G1Proj& p,
   fq_add(z3, t1, t2);
   fq_sub(t1, t1, t2);
   fq_mul12(y3, y3);                // b3 (x1z2 + x2z1)
+  team_add_level2<T>(r, t0, t1, t3, t4, y3, z3, rank, s, stride);
+}
+
+// r = p + (x2, y2) on a team of T, the second operand strictly affine as
+// for g1_add_mixed: its 11 multiplies as a level of five and a level of
+// six,
+//   level 1 (slots 0-4): x1 x2, y1 y2, (x1 + y1)(x2 + y2), z1 y2, z1 x2;
+//   level 2 (slots 6-11): team_add_level2,
+// so the chain is two dependent multiplies against 11 on one thread.
+// r may alias p.
+template <int T>
+__device__ __forceinline__ void g1_add_mixed_team(G1Proj& r, const G1Proj& p,
+                                                  const Fq& x2, const Fq& y2,
+                                                  int rank, uint32_t* s,
+                                                  int stride) {
 #pragma unroll
-  for (int j0 = 0; j0 < 6; j0 += T) {
-    int j = j0 + rank;
-    // a: t4, t3, y3, t1, t0, z3; b: y3, t1, t0, z3, t3, t4
-    Fq a, b, t;
-    fq_sel(a, j == 4, t0, z3);
-    fq_sel(a, j == 3, t1, a);
-    fq_sel(a, j == 2, y3, a);
-    fq_sel(a, j == 1, t3, a);
-    fq_sel(a, j == 0, t4, a);
-    fq_sel(b, j == 4, t3, t4);
-    fq_sel(b, j == 3, z3, b);
-    fq_sel(b, j == 2, t0, b);
-    fq_sel(b, j == 1, t1, b);
-    fq_sel(b, j == 0, y3, b);
-    fq_mul(t, a, b);
-    if (j < 6) put_slot(s, stride, 6 + j, t);
+  for (int j0 = 0; j0 < 5; j0 += T) {
+    int j = j0 + rank;               // job; j >= 5 runs a copy, unstored
+    // first operand x1, y1, x1 + y1, z1, z1; second x2, y2, x2 + y2, y2, x2
+    Fq a, b, u;
+    fq_sel(a, j == 1, p.y, p.x);
+    fq_sel(a, j >= 3, p.z, a);
+    fq_add(u, p.x, p.y);
+    fq_sel(a, j == 2, u, a);
+    fq_sel(b, j == 1 || j == 3, y2, x2);
+    fq_add(u, x2, y2);
+    fq_sel(b, j == 2, u, b);
+    fq_mul(u, a, b);
+    if (j < 5) put_slot(s, stride, j, u);
   }
   __syncwarp();
-  Fq m0, m1;
-  get_slot(m0, s, stride, 6);
-  get_slot(m1, s, stride, 7);
-  fq_sub(r.x, m1, m0);
-  get_slot(m0, s, stride, 8);
-  get_slot(m1, s, stride, 9);
-  fq_add(r.y, m1, m0);
-  get_slot(m0, s, stride, 10);
-  get_slot(m1, s, stride, 11);
-  fq_add(r.z, m1, m0);
+  Fq t0, t1, t2, t3, t4, y3, z3, u;
+  get_slot(t0, s, stride, 0);
+  get_slot(t1, s, stride, 1);
+  get_slot(t3, s, stride, 2);
+  get_slot(t4, s, stride, 3);
+  get_slot(y3, s, stride, 4);
+  fq_add(u, t0, t1);
+  fq_sub(t3, t3, u);               // x1y2 + x2y1
+  fq_add(t4, p.y, t4);             // y1 + y2 z1
+  fq_add(y3, p.x, y3);             // x1 + x2 z1
+  fq_add(u, t0, t0);
+  fq_add(t0, u, t0);               // 3 x1x2
+  fq_mul12(t2, p.z);               // b3 z1
+  fq_add(z3, t1, t2);
+  fq_sub(t1, t1, t2);
+  fq_mul12(y3, y3);                // b3 (x1 + x2 z1)
+  team_add_level2<T>(r, t0, t1, t3, t4, y3, z3, rank, s, stride);
 }
 
 // -- points in limb planes and in shared memory ---------------------------------

@@ -12,15 +12,21 @@
 // planes, RCB15's 11-multiply mixed formula (ec.cuh::g1_add_mixed), limb
 // for limb the JAX kernel's result.
 //
-// Bound on the H100: integer ALU.  One mixed add is 11 Fq Montgomery
-// multiplies (3,300 32x32 multiplies) against 384 bytes of traffic.
-// Design: as K9, one thread per lane with the formula in registers,
-// __launch_bounds__(128) for the RCB15 temporaries; neighbouring threads
-// read neighbouring words of each limb plane.
+// Bound on the H100: at the per-step route's 148 lanes neither the integer
+// ALU nor the 384 bytes a lane, but one launch of a chain of dependent Fq
+// multiplies: 11 on one thread a lane.  Design: a team of T = 6 threads of
+// one warp a lane (ec.cuh::g1_add_mixed_team): each level of independent
+// multiplies (5, then 6) dealt out one to a thread, so the chain is two
+// dependent multiplies plus the adds and two __syncwarp round trips.  One
+// warp a block, 32 / T lanes a warp; rank c % T stores coordinate c, pad
+// threads store nothing.  Every product is canonical, so the output is
+// g1_add_mixed's limb for limb.  (One thread a lane, and teams of 2 and 3:
+// tools/kernel_variants/k12_variants.py.)
 
 #include "ec.cuh"
 
-__global__ void __launch_bounds__(128)
+template <int T>
+__global__ void __launch_bounds__(32)
 ec_add_mixed_kernel(const uint32_t* __restrict__ px,
                     const uint32_t* __restrict__ py,
                     const uint32_t* __restrict__ pz,
@@ -28,37 +34,48 @@ ec_add_mixed_kernel(const uint32_t* __restrict__ px,
                     const uint32_t* __restrict__ qy, uint32_t* __restrict__ ox,
                     uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
                     int64_t rows, int64_t n) {
-  int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows * n) return;
+  constexpr int LANES = 32 / T;                    // lanes a warp
+  constexpr int TEAMS = (32 + T - 1) / T;          // teams a warp, pads too
+  constexpr int STRIDE = TEAMS * TEAM_SLOTS;
+  __shared__ uint32_t scratch[12 * STRIDE];
+  int team = threadIdx.x / T;
+  int rank = threadIdx.x - team * T;
+  int64_t total = rows * n;
+  int64_t idx = (int64_t)blockIdx.x * LANES + team;
+  bool owner = team < LANES && idx < total;
+  if (idx >= total) idx = total - 1;               // a copy, stored by none
   int64_t r = idx / n;
-  int64_t j = idx - r * n;
-  int64_t off = r * 24 * n + j;
+  int64_t off = r * 24 * n + (idx - r * n);
   G1Proj p;
   Fq x2, y2;
-  load_limbs<12>(p.x, px + off, n);
-  load_limbs<12>(p.y, py + off, n);
-  load_limbs<12>(p.z, pz + off, n);
+  load_point(p, px, py, pz, off, n);
   load_limbs<12>(x2, qx + off, n);
   load_limbs<12>(y2, qy + off, n);
-  g1_add_mixed(p, p, x2, y2);
-  store_limbs<12>(ox + off, n, p.x);
-  store_limbs<12>(oy + off, n, p.y);
-  store_limbs<12>(oz + off, n, p.z);
+  g1_add_mixed_team<T>(p, p, x2, y2, rank, scratch + team * TEAM_SLOTS,
+                       STRIDE);
+  if (owner) {
+    if (rank == 0) store_limbs<12>(ox + off, n, p.x);
+    if (rank == 1 % T) store_limbs<12>(oy + off, n, p.y);
+    if (rank == 2 % T) store_limbs<12>(oz + off, n, p.z);
+  }
+}
+
+template <int T>
+static void launch(const void* px, const void* py, const void* pz,
+                   const void* qx, const void* qy, void* ox, void* oy,
+                   void* oz, int64_t rows, int64_t n, cudaStream_t stream) {
+  int64_t blocks = (rows * n + 32 / T - 1) / (32 / T);
+  ec_add_mixed_kernel<T><<<(unsigned)blocks, 32, 0, stream>>>(
+      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz,
+      (const uint32_t*)qx, (const uint32_t*)qy, (uint32_t*)ox, (uint32_t*)oy,
+      (uint32_t*)oz, rows, n);
 }
 
 extern "C" int dt_ec_add_mixed(const void* px, const void* py,
                                const void* pz, const void* qx,
                                const void* qy, void* ox, void* oy, void* oz,
                                int64_t rows, int64_t n, void* stream) {
-  int64_t total = rows * n;
-  if (total > 0) {
-    int threads = 128;
-    int64_t blocks = (total + threads - 1) / threads;
-    ec_add_mixed_kernel<<<(unsigned)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(
-        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz,
-        (const uint32_t*)qx, (const uint32_t*)qy, (uint32_t*)ox,
-        (uint32_t*)oy, (uint32_t*)oz, rows, n);
-  }
+  if (rows * n > 0)
+    launch<6>(px, py, pz, qx, qy, ox, oy, oz, rows, n, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,19 @@
-// K11a and K12: per-lane inclusive prefix scan of complete mixed G1
-// additions, with limb-plane (K11a) or element-major (K12) output.
+// K11a: per-lane inclusive prefix scan of complete mixed G1 additions,
+// limb-plane output.
 //
-// K11a replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::
+// Replaces the TPU kernel dusk_plonk_tpu/ops/pallas_field.py::
 // ec_scan_mixed (_ec_scan_mixed_kernel), the 16-bit chunk scan of the
 // Pippenger MSM, and its 14-bit twin ::ec_scan_mixed14
 // (_ec_scan_mixed14_kernel) of the default configuration
 // (ops/msm.py::MsmPlan._window_group_totals); the group elements are the
-// same.  K12 replaces ::ec_scan_mixed14_em (_ec_scan_mixed14_em_kernel),
-// the same scan with element-major output, routed by config.ec_scan_em:
-// the bucket phase then reads each prefix point as 72 contiguous words.
-// The JAX 14-bit kernels return the points projectively scaled by 2^8;
-// these return the 16-bit engine's own triples (the same points).
+// same.  The JAX 14-bit kernel returns the points projectively scaled by
+// 2^8; this returns the 16-bit engine's own triples (the same points).
+// K12, the same scan with element-major output, is ec_scan_em.cu.
 //
 // Input g is (cl, 48, lanes): for step s, rows 0..23 hold the affine x and
 // rows 24..47 the affine y of the point added on each lane.  The running
 // sum after each step, from the identity (acc_s = acc_{s-1} + g_s), goes
-// to three (cl, 24, lanes) planes (K11a) or to one (cl, lanes, 72) array
-// (K12): row (s, lane) holds x, y, z as 24 limbs each.
+// to three (cl, 24, lanes) planes.
 //
 // Bound on the H100: the latency of one thread's chain of 256 dependent
 // mixed adds (11 Fq multiplies each), not the card's throughput: at the
@@ -29,17 +26,13 @@
 // limb), and the chain made short in time instead: the Fq multiply, whose
 // dependent word steps set the step time, runs on two interleaved PTX
 // carry chains with immediate modulus words (field.cuh).  Each step
-// reads 48 words and writes 72.  Reads are coalesced (neighbouring threads
-// on neighbouring lanes); K12's writes are 72 contiguous words a thread,
-// so one warp's step fills one contiguous 9 KB span.
-// __launch_bounds__(128): 182 registers (K12 192), no spill; (128, 3)
-// caps them at 168 and spills, and was slower.  K11a runs 128-thread
-// blocks, K12 64-thread blocks: more resident warps per SM made K12's
-// row stores faster on the card and did not change K11a.
+// reads 48 words and writes 72.  Reads and writes are coalesced
+// (neighbouring threads on neighbouring lanes).
+// __launch_bounds__(128): 182 registers, no spill; (128, 3) caps them at
+// 168 and spills, and was slower.  128-thread blocks.
 
 #include "ec.cuh"
 
-template <bool EM>
 __global__ void __launch_bounds__(128)
 ec_scan_mixed_kernel(const uint32_t* __restrict__ g, uint32_t* __restrict__ ox,
                      uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
@@ -54,41 +47,22 @@ ec_scan_mixed_kernel(const uint32_t* __restrict__ g, uint32_t* __restrict__ ox,
     load_limbs<12>(x2, src, lanes);
     load_limbs<12>(y2, src + 24 * lanes, lanes);
     g1_add_mixed(acc, acc, x2, y2);
-    if (EM) {
-      uint32_t* row = ox + ((int64_t)s * lanes + lane) * 72;
-      store_limbs<12>(row, 1, acc.x);
-      store_limbs<12>(row + 24, 1, acc.y);
-      store_limbs<12>(row + 48, 1, acc.z);
-    } else {
-      int64_t off = (int64_t)s * 24 * lanes + lane;
-      store_limbs<12>(ox + off, lanes, acc.x);
-      store_limbs<12>(oy + off, lanes, acc.y);
-      store_limbs<12>(oz + off, lanes, acc.z);
-    }
+    int64_t off = (int64_t)s * 24 * lanes + lane;
+    store_limbs<12>(ox + off, lanes, acc.x);
+    store_limbs<12>(oy + off, lanes, acc.y);
+    store_limbs<12>(oz + off, lanes, acc.z);
   }
-}
-
-template <bool EM>
-static int launch(const void* g, void* ox, void* oy, void* oz, int cl,
-                  int64_t lanes, void* stream) {
-  if (lanes > 0 && cl > 0) {
-    int threads = EM ? 64 : 128;
-    int64_t blocks = (lanes + threads - 1) / threads;
-    ec_scan_mixed_kernel<EM><<<(unsigned)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-        (const uint32_t*)g, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, cl,
-        lanes);
-  }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int dt_ec_scan_mixed(const void* g, void* ox, void* oy, void* oz,
                                 int cl, int64_t lanes, void* stream) {
-  return launch<false>(g, ox, oy, oz, cl, lanes, stream);
-}
-
-// K12: out is one (cl, lanes, 72) array
-extern "C" int dt_ec_scan_mixed_em(const void* g, void* out, int cl,
-                                   int64_t lanes, void* stream) {
-  return launch<true>(g, out, nullptr, nullptr, cl, lanes, stream);
+  if (lanes > 0 && cl > 0) {
+    int threads = 128;
+    int64_t blocks = (lanes + threads - 1) / threads;
+    ec_scan_mixed_kernel<<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+        (const uint32_t*)g, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, cl,
+        lanes);
+  }
+  return (int)cudaGetLastError();
 }

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "dt_ec_add": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
     "dt_ec_add_mixed": [_P] * 8 + [_I64, _I64, _P],
     "dt_ec_scan_mixed": [_P, _P, _P, _P, _I, _I64, _P],
-    "dt_ec_scan_mixed_em": [_P, _P, _I, _I64, _P],
+    "dt_ec_scan_mixed_em": [_P, _P, _I, _I64, _I, _P],
     "dt_reduce_planes": [_P, _P, _I64, _I64, _P],
     "dt_ec_sum_steps": [_P] * 6 + [_I, _I64, _I, _I, _P],
     "dt_ec_scan_excl": [_P] * 6 + [_I, _I64, _I, _I, _P],

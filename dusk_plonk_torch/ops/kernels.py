@@ -8,7 +8,7 @@ version and a launch counter.
 | ec_add           | K9  ec_add.cu         | pallas_field.py::ec_add, ec_add14  |
 | ec_add_mixed     | K10 ec_add_mixed.cu   | pallas_field.py::ec_add_mixed      |
 | ec_scan_mixed    | K11a ec_scan.cu       | ::ec_scan_mixed, ec_scan_mixed14   |
-| ec_scan_mixed_em | K12 ec_scan.cu        | ::ec_scan_mixed14_em               |
+| ec_scan_mixed_em | K12 ec_scan_em.cu     | ::ec_scan_mixed14_em               |
 | ec_sum_steps     | K11b ec_sum.cu        | ::ec_sum_steps, ec_sum_steps14     |
 | ec_scan_excl     | K4  ec_scan_excl.cu   | ::ec_scan_excl14                   |
 | ec_double_add    | K7  ec_double_add.cu  | ::ec_double_add14                  |
@@ -455,7 +455,8 @@ def ec_add_mixed_plain(G1, p, q2):
 
 def ec_add_mixed(G1, p, q2):
     """p + (x2, y2) on (..., 24, N) Montgomery planes of one shape, q2
-    strictly affine (z = 1, never the identity)."""
+    strictly affine (z = 1, never the identity), on a team of six threads
+    a lane; limb for limb the plain version."""
     if _is_cpu(*p, *q2):
         return ec_add_mixed_plain(G1, p, q2)
     _check_int32(*p, *q2)
@@ -515,6 +516,21 @@ def _check_scan_input(name, g):
 
 # -- K12: mixed-add prefix scan, element-major output ----------------------------------
 
+# K12's threads a mixed add by lane count, from its C-entry times on the
+# H100 (NVIDIA H100 80GB HBM3, 700 W; tools/kernel_variants/
+# k12_variants.py, cl = 256; ms at 5,140 / 10,280 / 20,560 / 77,100
+# lanes): a team of six 1.485 / 2.556 / 4.870 / 17.372, of three 1.772 /
+# 2.259 / 4.506 / 15.261, one thread 4.222 / 4.237 / 5.351 / 12.934.  Each
+# team up to the widest lane count where it was the fastest.
+SCAN_TEAM_LANES = ((5140, 6), (20560, 3))
+
+
+def _scan_team(lanes: int) -> int:
+    """K12's threads a lane: the first team of SCAN_TEAM_LANES whose lane
+    count reaches `lanes`, else one thread."""
+    return next((N for top, N in SCAN_TEAM_LANES if lanes <= top), 1)
+
+
 def ec_scan_mixed_em_plain(G1, g):
     """K12's plain version: K11a's plain scan, re-laid-out element-major."""
     ps = ec_scan_mixed_plain(G1, g)
@@ -524,14 +540,15 @@ def ec_scan_mixed_em_plain(G1, g):
 def ec_scan_mixed_em(G1, g):
     """g (cl, 48, lanes) as for ec_scan_mixed -> (cl, lanes, 72): row
     (s, lane) is that lane's running sum after step s, x, y, z as 24 limbs
-    each."""
+    each, in one launch of _scan_team's team size; limb for limb the plain
+    version whatever the team."""
     if _is_cpu(g):
         return ec_scan_mixed_em_plain(G1, g)
     _check_scan_input("ec_scan_mixed_em", g)
     cl, _, lanes = g.shape
     out = torch.empty((cl, lanes, 72), dtype=torch.int32, device=g.device)
     rc = _build.lib().dt_ec_scan_mixed_em(_ptr(g), _ptr(out), cl, lanes,
-                                          _stream())
+                                          _scan_team(lanes), _stream())
     ec_scan_mixed_em.launches += 1
     _build.check(rc, "ec_scan_mixed_em")
     return out

@@ -13,7 +13,8 @@ against the port in tests/test_torch_tail14.py).
   the jobs rank, rank + T, ... of a level, picks its operands as the CUDA
   code's selects do, stores only jobs below the level's size; one batched
   multiply a round; the adds between levels as the CUDA code orders them)
-  equals DeviceG1.double_formula and add_formula limb for limb."""
+  equals DeviceG1.double_formula and add_formula limb for limb, and the
+  model of g1_add_mixed_team (K10) equals add_mixed_formula."""
 
 import numpy as np
 import pytest
@@ -166,6 +167,11 @@ def add_team(p, q, T):
     z3 = F.add(t1, t2)
     t1 = F.sub(t1, t2)
     y3 = _mul12(y3)
+    return _add_level2(T, s, t0, t1, t3, t4, y3, z3)
+
+
+def _add_level2(T, s, t0, t1, t3, t4, y3, z3):
+    """csrc/ec.cuh::team_add_level2<T>: the six products, then the sums."""
     ops_a = (t4, t3, y3, t1, t0)
     ops_b = (y3, t1, t0, z3, t3)
 
@@ -173,6 +179,29 @@ def add_team(p, q, T):
         return (ops_a[j] if j < 5 else z3, ops_b[j] if j < 5 else t4)
     _level(T, 6, s, 6, level2)
     return (F.sub(s[7], s[6]), F.add(s[9], s[8]), F.add(s[11], s[10]))
+
+
+def add_mixed_team(p, q2, T):
+    """csrc/ec.cuh::g1_add_mixed_team<T>, step for step."""
+    x1, y1, z1 = p
+    x2, y2 = q2
+    s = {}
+
+    def level1(j):
+        a = _sel(j == 2, F.add(x1, y1), _sel(j >= 3, z1, _sel(j == 1, y1, x1)))
+        b = _sel(j == 2, F.add(x2, y2), _sel(j in (1, 3), y2, x2))
+        return a, b
+    _level(T, 5, s, 0, level1)
+    t0, t1 = s[0], s[1]
+    t3 = F.sub(s[2], F.add(t0, t1))
+    t4 = F.add(y1, s[3])
+    y3 = F.add(x1, s[4])
+    t0 = F.add(F.add(t0, t0), t0)
+    t2 = _mul12(z1)
+    z3 = F.add(t1, t2)
+    t1 = F.sub(t1, t2)
+    y3 = _mul12(y3)
+    return _add_level2(T, s, t0, t1, t3, t4, y3, z3)
 
 
 def _special(seed):
@@ -191,3 +220,28 @@ def test_team_schedule_equals_formulas(T):
         assert torch.equal(a, b)
     for a, b in zip(add_team(p, q, T), G1.add_formula(p, q, MUL)):
         assert torch.equal(a, b)
+
+
+def _special_mixed(seed):
+    """(p, (x2, y2)) on 6 lanes: random, O + Q, P + P, P + (-P), random,
+    random; q affine (Z = 1), p with random Z."""
+    pts = _points(seed, 6)
+    qs = [pts[1], pts[2], pts[3], pts[4], pts[5], pts[0]]
+    ps = [pts[0], None, pts[3], bls.g1_neg(pts[4]), pts[4], pts[5]]
+    q = G1.pack_points(qs, "cpu")
+    return _pack(seed, ps), (q[0], q[1]), ps, qs
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 6])
+def test_mixed_team_schedule_equals_formula(T):
+    """g1_add_mixed_team<T> (K10's team of six, K12's teams of three and
+    six, the variants' team of two) limb for limb with
+    DeviceG1.add_mixed_formula, and the host group law."""
+    p, q2, ps, qs = _special_mixed(50 + T)
+    got = add_mixed_team(p, q2, T)
+    for a, b in zip(got, G1.add_mixed_formula(p, q2, MUL)):
+        assert torch.equal(a, b)
+    want = [b if a is None else bls.g1_add(a, b) for a, b in zip(ps, qs)]
+    assert G1.to_affine(got) == want
+    assert want[3] is None
+
