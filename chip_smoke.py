@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port (dusk_plonk_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases env,kernels,small,full,msm,alt]
+    python3 chip_smoke.py [--phases env,kernels,small,full,msm,alt,large]
 
 Phases, one summary line each (more for kernels):
   1. env: the card, torch / CUDA / nvcc versions, and the build of the
@@ -10,7 +10,8 @@ Phases, one summary line each (more for kernels):
   2. kernels: every kernel against its plain PyTorch version, limb for
      limb, at the shapes the 2^16 proof, key compilation and MSM give it,
      with both times (K7 and K8 with their chains of dependent
-     multiplies), and the gathers around the MSM's K9 launch;
+     multiplies), the gathers around the MSM's K9 launch, and K11a and K4
+     at the widest row group of a 2^20 commit batch;
   3. small: at k = 7, device SRS setup equal to the host setup, device key
      compilation equal to the host compilation (verification key bytes),
      and a proof equal to the host oracle's field for field, verified;
@@ -25,7 +26,13 @@ Phases, one summary line each (more for kernels):
      ec_scan_em: every chunk scan on kernel K12) through setup, compile and
      proofs at 2^16, each equal to the default configuration's byte for
      byte, the msm phase under ec_scan_em, and the JAX MSM's per-step scan
-     route (one kernel K10 launch a step) at 2^10 points.
+     route (one kernel K10 launch a step) at 2^10 points;
+  7. large: bench.py's 2^20 path on one card: setup_device(20),
+     compile_device (the MSM in row groups under config.msm_group_slots),
+     a warm and a timed proof verified on the host, per-step times and
+     peak GiB, each kernel's launches by shape with device ms beside its
+     bound, and one 2^20 commitment equal under the default cap, under
+     one row a group and on the host C++ MSM.
 
 Then a JSON line of per-kernel results (with each kernel's bound), the
 card's name and power limit, and, last, {"ok": true, "device": {...}}.  Any
@@ -46,8 +53,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "kernels", "small", "full", "msm", "alt")
+PHASES = ("env", "kernels", "small", "full", "msm", "alt", "large")
 K = 16          # log2 constraints of the full-width proof (bench.py's 2^16)
+K_LARGE = 20    # and of the large proof (bench.py's 2^20)
 
 
 def say(phase, **fields):
@@ -627,6 +635,27 @@ def phase_kernels(shapes):
               lambda: kernels.ec_scan_mixed(G1, g),
               lambda: kernels.ec_scan_mixed_plain(G1, g), 3,
               (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED))
+    # and at the widest group of a k = 20 commit batch, the cap's rows of
+    # 4,097 chunks (1.56e9 input words: 64-bit offsets); limb for limb
+    # against the plain version on the first and last 512 lanes (lanes are
+    # independent, and the whole plain scan would take minutes)
+    lanes = shapes["k20"]["group_rows"] * shapes["k20"]["chunks"]
+    idx = torch.randint(0, 64, (cl * lanes,), generator=gen).to(dev)
+    g = torch.cat([aff[0][:, idx], aff[1][:, idx]]).reshape(
+        48, cl, lanes).permute(1, 0, 2).contiguous()
+    del idx
+    out = kernels.ec_scan_mixed(G1, g)
+    ms = cuda_ms(lambda: kernels.ec_scan_mixed(G1, g), 1)
+    sl = torch.cat([torch.arange(512),
+                    torch.arange(lanes - 512, lanes)]).to(dev)
+    gs = g[:, :, sl].contiguous()
+    del g
+    ref, plain_ms = cuda_once(lambda: kernels.ec_scan_mixed_plain(G1, gs))
+    record("ec_scan_mixed", f"(cl={cl},48,lanes={lanes})",
+           tuple(c[:, :, sl] for c in out), ref, ms, plain_ms,
+           (cl * lanes * (48 + 72) * 4, cl * lanes * EC_ADD_MIXED),
+           plain_lanes=len(sl))
+    del out, ref, gs
 
     # K12: the element-major chunk scan at the alt path's launches: an alt
     # proof's B = 1, 2, 4 batches (5,140 lanes, also msm_device's; 10,280;
@@ -719,6 +748,17 @@ def phase_kernels(shapes):
         r = results["ec_scan_excl"]
         r["max_abs_err_affine_vs_sequential"] = max(
             err, r.get("max_abs_err_affine_vs_sequential", 0))
+    # and at a k = 20 commit's chunk count (the widest group of its rows,
+    # shapes["k20"]): runs of 33 steps, limb for limb against the plain
+    # version in the kernel's block order
+    nc20, rows20 = shapes["k20"]["chunks"], shapes["k20"]["group_rows"]
+    block = kernels._excl_block(nc20)
+    g = proj_steps(nc20, rows20)
+    check("ec_scan_excl", f"(steps={nc20},lanes={rows20},block={block})",
+          lambda: kernels.ec_scan_excl(G1, g),
+          lambda: kernels.ec_scan_excl_plain(G1, g, block), 3,
+          (2 * nc20 * 72 * rows20 * 4, (nc20 - 1) * rows20 * EC_ADD))
+    del g
 
     # chunk-length sweep for a later choice of msm_chunk_len: K11a on
     # W n_pad / cl lanes a commit and K4 on n_pad / cl steps, B = 1 and 4
@@ -874,52 +914,140 @@ LAUNCHES_PER_PROOF = {"mont_mul": 788, "ntt": 12, "ec_add": 4,
                       "ec_scan_excl": 4, "ec_double_add": 4}
 
 
-def count_mont_mul_classes():
-    """Wrap K1's C entry point so that each launch also counts under its
-    (field, rows, n) class; returns (the Counter, a function that restores
-    the entry point).  The package's own counter is untouched."""
-    from dusk_plonk_torch.ops import _build
-    lib = _build.lib()
-    entry = lib.dt_mont_mul
-    classes = collections.Counter()
-
-    def counted(limbs, *args):
-        rows, n = args[-3], args[-2]
-        classes[f"{'Fr' if limbs == 16 else 'Fq'}(rows={rows},n={n})"] += 1
-        return entry(limbs, *args)
-
-    lib.dt_mont_mul = counted
-
-    def restore():
-        lib.dt_mont_mul = entry
-    return classes, restore
+# each kernel's C entry point, and from its arguments (as the wrappers of
+# ops/kernels.py pass them) the launch's class, its shape, and its work:
+# (bytes it must move, each input read once and each output written once;
+# 32-bit multiplies), as phase_kernels counts them
+def _mont_mul_launch(a):
+    L, sa_row, sa_elem, sb_row, sb_elem, rows, n = (a[0], a[2], a[4], a[6],
+                                                   a[8], a[10], a[11])
+    elems = sum((rows if r else 1) * (n if e else 1)
+                for r, e in ((sa_row, sa_elem), (sb_row, sb_elem)))
+    return (f"{'Fr' if L == 16 else 'Fq'}(rows={rows},n={n})",
+            ((elems + rows * n) * L * 4,
+             rows * n * (FR_MUL if L == 16 else FQ_MUL)))
 
 
-def time_scan_em_launches():
-    """Wrap K12's C entry point so that CUDA events on the launch stream
-    bracket each launch; returns (the list of (lanes, team, start, end)
-    marks, a function that restores the entry point).  The package's
-    launch counter is untouched."""
-    import torch
-    from dusk_plonk_torch.ops import _build
-    lib = _build.lib()
-    entry = lib.dt_ec_scan_mixed_em
-    marks = []
+def _ntt_launch(a):
+    batch, k, log_m, pre, post = a[5], a[6], a[7], a[16], a[17]
+    n = 1 << k
+    return (f"(batch={batch},k={k},log_m={log_m})",
+            (2 * batch * 16 * n * 4 + 32 * n * (pre + (post > 1)),
+             batch * (n // 2 * log_m + n * (pre + (post > 0))) * FR_MUL))
 
-    def timed(g, out, cl, lanes, team, stream):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        rc = entry(g, out, cl, lanes, team, stream)
-        end.record()
-        marks.append((lanes, team, start, end))
-        return rc
 
-    lib.dt_ec_scan_mixed_em = timed
+def _steps_launch(a, work):
+    steps, lanes, T, m = a[6], a[7], a[8], a[9]
+    return f"(steps={steps},lanes={lanes},block=({T},{m}))", \
+        work(steps, lanes)
 
-    def restore():
-        lib.dt_ec_scan_mixed_em = entry
-    return marks, restore
+
+LAUNCH_CLASSES = {
+    "mont_mul": ("dt_mont_mul", _mont_mul_launch),
+    "ntt": ("dt_ntt_pass", _ntt_launch),
+    "ec_add": ("dt_ec_add", lambda a: (
+        f"lanes={a[9] * a[10]}",
+        (9 * 24 * a[9] * a[10] * 4, a[9] * a[10] * EC_ADD))),
+    "ec_add_mixed": ("dt_ec_add_mixed", lambda a: (
+        f"lanes={a[8] * a[9]}",
+        (8 * 24 * a[8] * a[9] * 4, a[8] * a[9] * EC_ADD_MIXED))),
+    "ec_scan_mixed": ("dt_ec_scan_mixed", lambda a: (
+        f"(cl={a[4]},48,lanes={a[5]})",
+        (a[4] * a[5] * (48 + 72) * 4, a[4] * a[5] * EC_ADD_MIXED))),
+    "ec_scan_mixed_em": ("dt_ec_scan_mixed_em", lambda a: (
+        f"(cl={a[2]},48,lanes={a[3]},team={a[4]})",
+        (a[2] * a[3] * (48 + 72) * 4, a[2] * a[3] * EC_ADD_MIXED))),
+    "ec_sum_steps": ("dt_ec_sum_steps", lambda a: _steps_launch(
+        a, lambda s, l: ((s + 1) * 72 * l * 4, s * l * EC_ADD))),
+    "ec_scan_excl": ("dt_ec_scan_excl", lambda a: _steps_launch(
+        a, lambda s, l: (2 * s * 72 * l * 4, (s - 1) * l * EC_ADD))),
+    "ec_double_add": ("dt_ec_double_add", lambda a: (
+        f"(k={a[9]},lanes={a[10]})",
+        (3 * 72 * a[10] * 4, a[10] * (a[9] * EC_DBL + EC_ADD)))),
+    "ec_combine": ("dt_ec_combine", lambda a: (
+        f"(W={a[6]},c={a[7]},lanes={a[8]})",
+        ((a[6] + 1) * 72 * a[8] * 4,
+         a[8] * (a[6] - 1) * (a[7] * EC_DBL + EC_ADD)))),
+    "reduce_planes": ("dt_reduce_planes", lambda a: (
+        f"(rows={a[2]},65,n={a[3]})",
+        (a[2] * a[3] * (65 + 16) * 4, a[2] * a[3] * REDUCE_PLANES))),
+}
+
+
+class LaunchLog:
+    """Wraps the C entry points of `names` (default: every kernel) so that
+    each launch is logged as (kernel, class, args, work, start, end), with
+    CUDA events on the launch stream around it when `timed`.  A context
+    manager: the entry points are restored on exit.  The package's own
+    launch counters are untouched."""
+
+    def __init__(self, names=tuple(LAUNCH_CLASSES), timed=False):
+        self.names = names
+        self.timed = timed
+        self.entries = []
+        self._saved = {}
+
+    def __enter__(self):
+        import torch
+        from dusk_plonk_torch.ops import _build
+        self._lib = lib = _build.lib()
+        for name in self.names:
+            attr, classify = LAUNCH_CLASSES[name]
+            entry = getattr(lib, attr)
+            self._saved[attr] = entry
+
+            def logged(*args, name=name, entry=entry, classify=classify):
+                cls, work = classify(args)
+                ev = None
+                if self.timed:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                rc = entry(*args)
+                if ev:
+                    ev[1].record()
+                self.entries.append((name, cls, args, work, ev))
+                return rc
+            setattr(lib, attr, logged)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, entry in self._saved.items():
+            setattr(self._lib, attr, entry)
+
+    def classes(self, name=None, start=0):
+        """Counter of the launches from entry `start` on by class (of
+        kernel `name`) or by (kernel, class)."""
+        return collections.Counter(
+            cls if name else (k, cls) for k, cls, *_ in
+            self.entries[start:] if name in (None, k))
+
+    def ms(self, i):
+        """Device ms of logged launch i (timed logs, after a sync)."""
+        start, end = self.entries[i][4]
+        return start.elapsed_time(end)
+
+    def table(self, rate, start=0):
+        """Per (kernel, class) from entry `start` on: launches, their
+        bounds summed (phase_kernels' formula; launches of one class may
+        move other bytes, as K1 with a broadcast operand), and for a timed
+        log the device ms summed; each also a launch."""
+        rows = {}
+        for i in range(start, len(self.entries)):
+            k, cls, _, work, ev = self.entries[i]
+            b_ms, b_by = bound(*work, rate)
+            r = rows.setdefault((k, cls), {
+                "kernel": k, "class": cls, "launches": 0, "bound_ms": 0.0,
+                "bound_by": b_by})
+            r["launches"] += 1
+            r["bound_ms"] += b_ms
+            if ev:
+                r["ms"] = r.get("ms", 0.0) + self.ms(i)
+        for r in rows.values():
+            for key in ("ms", "bound_ms"):
+                if key in r:
+                    r[key + "_a_launch"] = r[key] / r["launches"]
+        return list(rows.values())
 
 
 def phase_full(k):
@@ -950,16 +1078,15 @@ def phase_full(k):
     say("full", k=k, setup_s=t1 - t0, setup_steps=pp.setup_timings,
         srs_spot_checked=checked, compile_s=t3 - t2,
         compile_steps=engine.compile_timings,
-        commit15_peak_gb=engine.commit15_peak_bytes / 2 ** 30,
+        commit15_peak_gb=engine.compile_peaks["commit15"] / 2 ** 30,
         ns=engine.ns, n8=engine.n8, launches_setup=counts["setup"],
         launches_compile=counts["compile"])
 
-    classes, restore = count_mont_mul_classes()
-    try:
+    with LaunchLog(("mont_mul",)) as log:
         kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
         proof, pis = prover.create_proof(rng, Bench(3))        # warm
         warm = dict(engine.last_timings)
+        peak = max(engine.last_peaks.values())
         verifier.verify(proof, pis)
         times, rounds = [], []
         for _ in range(2):
@@ -968,9 +1095,9 @@ def phase_full(k):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             rounds.append(dict(engine.last_timings))
+            peak = max(peak, *engine.last_peaks.values())
         counts["proof"] = kernels.launch_counts()
-    finally:
-        restore()
+    classes = log.classes("mont_mul")
     if sum(classes.values()) != counts["proof"]["mont_mul"]:
         raise AssertionError("mont_mul classes do not add up to its count")
     t0 = time.perf_counter()
@@ -984,7 +1111,7 @@ def phase_full(k):
                                      for c, v in classes.most_common()},
         mont_mul_per_proof=counts["proof"]["mont_mul"] / 3,
         launches_per_proof_expected=LAUNCHES_PER_PROOF,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        peak_mem_gb=peak / 2 ** 30)
     need = {"setup": ("ec_add",),
             "compile": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                         "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
@@ -1092,23 +1219,21 @@ def phase_alt(k):
                                  "default config's")
         kernels.reset_launches()
         times, rounds, k12 = [], [], []
-        marks, restore = time_scan_em_launches()
-        try:
+        with LaunchLog(("ec_scan_mixed_em",), timed=True) as log:
             for i in range(3):                      # the first is warm
-                first = len(marks)
+                first = len(log.entries)
                 t0 = time.perf_counter()
                 proof, pis = prover.create_proof(
                     ChaCha12Rng.seed_from_u64(77), Bench(3))
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 rounds.append(dict(engine.last_timings))
-                k12.append([(lanes, team, s.elapsed_time(e))
-                            for lanes, team, s, e in marks[first:]])
+                k12.append([(log.entries[j][2][3], log.entries[j][2][4],
+                             log.ms(j))
+                            for j in range(first, len(log.entries))])
                 if proof.to_bytes() != ref_bytes or pis != ref_pis:
                     raise AssertionError(f"alt: proof {i} differs from the "
                                          f"default config's")
-        finally:
-            restore()
         counts["proof"] = kernels.launch_counts()
         verifier.verify(proof, pis)
         verifier_a.verify(proof, pis)
@@ -1170,6 +1295,164 @@ def phase_alt(k):
     return counts
 
 
+def msm_plan_under(n, **overrides):
+    """MsmPlan(n) built under `overrides` of the config, restored after."""
+    from dusk_plonk_torch.ops.msm import MsmPlan
+    from dusk_plonk_torch.utils import config
+    old = config.get_config()
+    config.set_config(**overrides)
+    try:
+        return MsmPlan(n)
+    finally:
+        config.set_config(**{k: getattr(old, k) for k in overrides})
+
+
+# the kernels each path of phase large must launch
+LARGE_NEED = {"setup": ("mont_mul", "ec_add"),
+              "compile": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
+                          "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
+              "proof": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
+                        "ec_sum_steps", "ec_scan_excl", "ec_double_add")}
+
+
+def phase_large(k):
+    """bench.py's 2^20 path (bench.py::_maybe_bench_2e20) with the SRS made
+    by the device setup (no cached SRS file): setup_device (16 powers
+    spot-checked), compile_device, one warm and one timed proof, each
+    verified on the host verifier.  Per-step wall times and peak GiB, the
+    MSM's row groups of each commit batch, and every kernel launch by
+    kernel and shape class for setup, compile and the timed proof, each
+    class with its device ms (CUDA events around each launch) and its
+    launches' summed bound.  Then key compilation's 15-commit batch in one
+    row group, which must run out of device memory (the fault the cap
+    repairs), and one 2^k commitment under the default cap and under a cap
+    of one row a group, equal in affine form, and against the host C++
+    MSM."""
+    import torch
+    from dusk_plonk_torch import native
+    from dusk_plonk_torch.ops import kernels
+    from dusk_plonk_torch.ops.limb import fr_field
+    from dusk_plonk_torch.prelude import (
+        ChaCha12Rng, PlonkKey, PlonkParams, fr_random)
+    torch.cuda.empty_cache()
+    rate = int_mul_rate()
+
+    def gb(peaks):
+        return {step: v / 2 ** 30 for step, v in peaks.items()}
+
+    Bench = bench_circuit(k)
+    counts, tables, wall = {}, {}, {}
+
+    def logged(path, fn):
+        with LaunchLog(timed=True) as log:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall[path] = time.perf_counter() - t0
+            counts[path] = kernels.launch_counts()
+        tables[path] = log.table(rate)
+        return out
+
+    tau = fr_random(ChaCha12Rng.seed_from_u64(8349))   # setup's one draw
+    rng = ChaCha12Rng.seed_from_u64(8349)
+    pp = logged("setup", lambda: PlonkParams.setup_device(k, rng))
+    t0 = time.perf_counter()
+    checked = spot_check_srs(pp, tau, 16, k)
+    spot_s = time.perf_counter() - t0
+    prover, verifier = logged("compile",
+                              lambda: PlonkKey.compile_device(pp, Bench))
+    engine = prover.engine
+    msm = engine.msm
+    groups = {f"B={B}": [b - a for a, b in
+                         msm._row_groups(B * msm.num_windows)]
+              for B in (15, 4, 1, 2)}
+    say("large", gpu=nvidia_smi_line(), k=k, setup_s=wall["setup"],
+        setup_steps=pp.setup_timings, setup_peak_gb=gb(pp.setup_peaks),
+        srs_spot_checked=checked, spot_check_s=spot_s,
+        compile_s=wall["compile"], compile_steps=engine.compile_timings,
+        compile_peak_gb=gb(engine.compile_peaks),
+        commit15_peak_gb=engine.compile_peaks["commit15"] / 2 ** 30,
+        ns=engine.ns, n8=engine.n8, n_pad=msm.n_pad,
+        window_bits=msm.window_bits, windows=msm.num_windows,
+        chunks=msm.n_pad // msm.chunk_len, group_slots=msm.group_slots,
+        row_groups=groups, launches_setup=counts["setup"],
+        launches_compile=counts["compile"],
+        launch_classes_setup=tables["setup"],
+        launch_classes_compile=tables["compile"])
+
+    t0 = time.perf_counter()
+    proof, pis = prover.create_proof(rng, Bench(3))            # warm
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = (dict(engine.last_timings), gb(engine.last_peaks))
+    verifier.verify(proof, pis)
+    proof, pis = logged("proof", lambda: prover.create_proof(rng, Bench(3)))
+    t0 = time.perf_counter()
+    verifier.verify(proof, pis)
+    verify_s = time.perf_counter() - t0
+    say("large", k=k, proof_s=wall["proof"], warm_s=warm_s,
+        rounds=engine.last_timings, rounds_warm=warm[0],
+        peak_gb=gb(engine.last_peaks), peak_gb_warm=warm[1],
+        verified=True, verify_s=verify_s, launches_proof=counts["proof"],
+        launch_classes_proof=tables["proof"])
+    missing = [(path, name) for path, names in LARGE_NEED.items()
+               for name in names if counts[path][name] == 0]
+    if missing:
+        raise AssertionError(f"large: kernels never launched on their "
+                             f"path: {missing}")
+
+    # the fault the cap repairs: key compilation's batch of 15 commits (300
+    # rows) in one group does not fit on the card
+    Fr = fr_field()
+    gen = torch.Generator().manual_seed(k)
+    stack = rand_limbs(gen, Fr, (15, engine.ns), "cuda")
+    uncapped = msm_plan_under(engine.ns, msm_group_slots=1 << 62)
+    oom = None
+    try:
+        uncapped.window_totals(engine.srs_em, stack)
+    except torch.OutOfMemoryError as e:
+        oom = ". ".join(str(e).split(". ")[:2])
+    del stack
+    torch.cuda.empty_cache()
+    if oom is None:
+        raise AssertionError("large: 15 commits in one group fit the card")
+    say("large", uncapped_rows=15 * uncapped.num_windows,
+        uncapped_groups=len(uncapped._row_groups(15 * uncapped.num_windows)),
+        uncapped_out_of_memory=oom)
+
+    # one commitment of seeded scalars to the 2^k + 7 SRS points: the
+    # default cap (the batch's W rows in one group) against one row a group
+    lim = rand_limbs(gen, Fr, (engine.ns,), "cuda")[None]
+    t0 = time.perf_counter()
+    default = msm.msm_affine_batch(engine.srs_em, lim)[0]
+    default_s = time.perf_counter() - t0
+    one_row = msm_plan_under(engine.ns, msm_group_slots=msm.n_pad)
+    t0 = time.perf_counter()
+    single = one_row.msm_affine_batch(engine.srs_em, lim)[0]
+    single_s = time.perf_counter() - t0
+    if default != single:
+        raise AssertionError("large: the commitment depends on the row "
+                             "groups")
+    scalars = Fr.unpack(lim[0], from_mont=False)
+    t0 = time.perf_counter()
+    host = native.g1_msm(pp.powers[:engine.ns], scalars)
+    host_s = time.perf_counter() - t0
+    if host != default:
+        raise AssertionError("large: the commitment differs from the host "
+                             "C++ MSM")
+    say("large", commit_points=engine.ns,
+        row_groups_default=[b - a for a, b in
+                            msm._row_groups(msm.num_windows)],
+        row_groups_one_row=[b - a for a, b in
+                            one_row._row_groups(one_row.num_windows)],
+        commit_default_s=default_s, commit_one_row_s=single_s,
+        equal_across_groups=True, host_msm_s=host_s, equal_to_host=True)
+    del prover, verifier, engine, pp
+    torch.cuda.empty_cache()
+    return counts
+
+
 PR = "dusk_plonk_tpu/ops/pallas_field.py"
 SOURCES = {
     "mont_mul": ("dusk_plonk_torch/csrc/mont_mul.cu", f"{PR}:1314"),
@@ -1221,13 +1504,16 @@ def main():
     nc = plan.n_pad // plan.chunk_len
     sa = 1 << ((plan.window_bits - 1) // 2)
     plan10 = MsmPlan(1 << 10)
+    plan20 = MsmPlan((1 << K_LARGE) + 7)
     shapes = {"srs": plan.n, "scan": plan.num_windows * nc,
               "tails": plan.num_windows * (plan.nb + 1),
               "windows": plan.num_windows, "chunks": nc, "sa": sa,
               "sb": plan.nb // sa, "nb_log2": plan.nb.bit_length() - 1,
               "window_bits": plan.window_bits,
               "step_lanes": plan10.num_windows * (plan10.n_pad
-                                                  // plan10.chunk_len)}
+                                                  // plan10.chunk_len),
+              "k20": {"chunks": plan20.n_pad // plan20.chunk_len,
+                      "group_rows": plan20.group_slots // plan20.n_pad}}
 
     results, counts = {}, {"msm": {}, "alt": {}}
     walls = {}
@@ -1247,6 +1533,8 @@ def main():
             counts["msm"] = phase_msm()[0]
         elif name == "alt":
             counts["alt"] = phase_alt(K)
+        elif name == "large":
+            counts["large"] = phase_large(K_LARGE)
         walls[name] = time.perf_counter() - t0
         say("wall", of=name, s=walls[name])
 
@@ -1261,7 +1549,9 @@ def main():
                "max_abs_err": r.get("max_abs_err"), "case": r.get("case"),
                "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-               "library_ms": None}
+               "library_ms": None,
+               "launches_k20_proof": counts.get("large", {}).get(
+                   "proof", {}).get(name)}
         for key in ("max_abs_err_affine_vs_sequential",
                     "max_abs_err_vs_ladder"):
             if key in r:

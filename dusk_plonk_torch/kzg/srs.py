@@ -113,7 +113,8 @@ class PlonkParams:
         batch.  The device's affine planes stay on as `packed`
         (Montgomery, z = 1), so device key compilation commits without
         packing the SRS again.  `setup_timings` holds the per-step wall
-        times."""
+        times, `setup_peaks` the peak bytes allocated in each (CUDA
+        only)."""
         import numpy as np
         import torch
         from ..ops.ec import device_g1
@@ -148,13 +149,14 @@ class PlonkParams:
         scalars = [1] * n
         for i in range(1, n):
             scalars[i] = scalars[i - 1] * tau % R_MOD
+        marks("tau_ladder")
         limbs = fr_field().pack_host(scalars)                # (16, n)
         digits = np.stack([limbs & 0xFF, (limbs >> 8) & 0xFF],
                           axis=1).reshape(32, n)             # (32, n)
         flat_idx = torch.from_numpy(
             digits.astype(np.int64) + np.arange(32)[:, None] * 256
         ).to(device)
-        marks("tau_ladder")
+        marks("pack_ladder")
 
         # device: a running sum over the 32 gathered windows (three (24, n)
         # buffers live at a time)
@@ -175,6 +177,7 @@ class PlonkParams:
         marks("g2")
         params = cls(powers, h, beta_h, packed=packed, g=powers[0])
         params.setup_timings = marks.times
+        params.setup_peaks = marks.peaks
         return params
 
     def trim(self, degree: int) -> "PlonkParams":

@@ -25,8 +25,15 @@ with the 14-bit kernels merged into the port's one limb engine:
      for the prover's commits, as the JAX prover does, or kernel K8 on the
      device (`msm_device`, the JAX package's bench MSM).
 
-The commit batch B rides in the row axis (B * W rows), so every kernel
-launch covers all commits of a batch.
+The commit batch B rides in the row axis (B * W rows, commit-major), so a
+kernel launch covers many commits at once.  Steps 2-5 hold ~640 bytes of
+device memory a (row, point) slot, so the rows go through them in
+balanced groups of at most `config.msm_group_slots // n_pad` rows
+(`MsmPlan._row_groups`): the one knob stands in for the JAX package's
+window groups and its `max_fused` commit cap (dusk_plonk_tpu/ops/msm.py:
+93-104, 673-709).  Rows are independent, so a group's totals are the same
+points; only K11b's block shape, which depends on the lane count, may give
+other projective representatives.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ class MsmPlan:
         self.nb = 1 << (c - 1)
         self.chunk_len = min(cfg.msm_chunk_len, n)
         self.scan_em = cfg.ec_scan_em
+        self.group_slots = cfg.msm_group_slots
         # pad to a chunk multiple: zero scalars sort into bucket 0, which
         # the reduction never reads
         self.n_pad = -(-n // self.chunk_len) * self.chunk_len
@@ -207,16 +215,34 @@ class MsmPlan:
 
     # -- public ------------------------------------------------------------------
 
+    def _row_groups(self, R: int):
+        """The row groups of an R-row batch: the fewest balanced groups of
+        at most max(1, group_slots // n_pad) rows, larger groups first,
+        as (start, stop) pairs covering 0..R in order.  Shapes and config
+        alone set them."""
+        cap = max(1, self.group_slots // self.n_pad)
+        G = -(-R // cap)
+        size, extra = divmod(R, G)
+        out, start = [], 0
+        for i in range(G):
+            stop = start + size + (i < extra)
+            out.append((start, stop))
+            start = stop
+        return out
+
     def window_totals(self, em, limbs_stack):
         """limbs_stack (B, 16, n) canonical -> LSB-first window totals,
-        ((24, B * W),)*3 projective Montgomery, commit-major."""
+        ((24, B * W),)*3 projective Montgomery, commit-major; the rows run
+        in `_row_groups`."""
         B = limbs_stack.shape[0]
         if self.n_pad != self.n:
             limbs_stack = torch.nn.functional.pad(
                 limbs_stack, (0, self.n_pad - self.n))
-        digits = self._digits(limbs_stack)                     # (B, W, N)
-        return self._window_totals(
-            em, digits.reshape(B * self.num_windows, self.n_pad))
+        digits = self._digits(limbs_stack).reshape(
+            B * self.num_windows, self.n_pad)
+        parts = [self._window_totals(em, digits[a:b])
+                 for a, b in self._row_groups(digits.shape[0])]
+        return tuple(torch.cat(c, dim=-1) for c in zip(*parts))
 
     def msm_device(self, em, limbs):
         """em: a prepare_points table; limbs (16, n) or (B, 16, n)

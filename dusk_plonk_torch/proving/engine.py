@@ -102,7 +102,8 @@ class TorchEngine:
         self.ops = TorchOps(F, device)
         self.plan_n = NttPlan(self.k, device)
         self.plan_8n = NttPlan(self.k8, device)
-        self.last_timings: dict = {}
+        self.last_timings: dict = {}     # per round: wall s
+        self.last_peaks: dict = {}       # and peak bytes (CUDA only)
 
         # --- SRS ---------------------------------------------------------------
         if srs is None:
@@ -493,6 +494,7 @@ class TorchEngine:
         w_z_chall_comm, w_z_chall_w_comm = self._commit_batch(aggs_canon)
         mark("openings")
         self.last_timings = mark.times
+        self.last_peaks = mark.peaks
 
         proof = Proof(
             a_comm=a_comm, b_comm=b_comm, c_comm=c_comm, d_comm=d_comm,

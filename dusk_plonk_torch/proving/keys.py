@@ -186,8 +186,9 @@ def compile_circuit_device(params, circuit, device="cuda",
     compile_circuit's.  Returns (prover with a TorchEngine attached,
     verifier); the ProvingKey carries no host tables, so the prover's host
     oracle path is unavailable.  `prover.engine.compile_timings` holds the
-    per-step wall times, `prover.engine.commit15_peak_bytes` the device's
-    peak allocation during the 15-commit batch (CUDA only)."""
+    per-step wall times, `prover.engine.compile_peaks` the device's peak
+    bytes allocated in each step (CUDA only; "commit15" is the 15-commit
+    batch)."""
     import torch
 
     from .engine import TorchEngine
@@ -222,12 +223,13 @@ def compile_circuit_device(params, circuit, device="cuda",
         col = [getattr(c, attr) for c in cs.constraints]
         flat.extend(col + [0] * (n - len(col)))
     cols = F.pack(flat, device, shape=(11, n))
+    marks("pack_columns")
     sigmas = cs.perm.compute_sigma_permutations(n)
     col_idx = torch.tensor([[c for c, _ in s] for s in sigmas],
                            device=device)                        # (4, n)
     gate_idx = torch.tensor([[g for _, g in s] for s in sigmas],
                             device=device)
-    marks("pack_columns")
+    marks("sigma_permutation")
     ks = F.pack([1, PERM_K1, PERM_K2, PERM_K3], device)          # (16, 4)
     roots = F.powers_host_base(fr_root_of_unity(k), n, device)   # (16, n)
     sig_lagrange = F.mul(ks[:, col_idx].movedim(0, 1),
@@ -247,14 +249,9 @@ def compile_circuit_device(params, circuit, device="cuda",
     msm = MsmPlan(ns)
     srs_em = msm.prepare_points(srs)
     marks("pack_srs")
-    on_cuda = torch.device(device).type == "cuda"
-    if on_cuda:
-        torch.cuda.reset_peak_memory_stats(device)
     commitments = dict(zip(SELECTOR_NAMES + SIGMA_NAMES,
                            msm.msm_affine_batch(srs_em, canon)))
     marks("commit15")
-    commit_peak = torch.cuda.max_memory_allocated(device) if on_cuda \
-        else None
 
     verifier_key = VerificationKey(
         n=m, n_inv=domain.size_inv, generator=domain.generator,
@@ -274,5 +271,5 @@ def compile_circuit_device(params, circuit, device="cuda",
                         cs.public_input_indexes(), n, m)
     marks("engine")
     engine.compile_timings = marks.times
-    engine.commit15_peak_bytes = commit_peak
+    engine.compile_peaks = marks.peaks
     return prover, verifier

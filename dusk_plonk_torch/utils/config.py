@@ -1,12 +1,14 @@
 """Runtime configuration of the port.
 
 Only the knobs that still apply on a GPU are kept from
-dusk_plonk_tpu/utils/config.py, with its names and defaults; its tile
-sizes, 14-bit switches, stacked twiddle limit, quotient chunking and mesh
-settings are TPU or 16 GB-HBM rules, and its off-TPU `ntt_mxu_force` has
-no counterpart (the route depends on the config alone; on CPU tensors
-every kernel runs its plain version).  One process-global config, read
-when a plan is built.
+dusk_plonk_tpu/utils/config.py, with its names: the MSM's window width,
+chunk length and working-set cap, the element-major scan and the
+four-step NTT.  The cap (`msm_group_slots`) keeps the JAX name and its
+role, with a default sized for an 80 GB card; its tile sizes, 14-bit
+switches, stacked twiddle limit, quotient chunking and mesh settings are
+TPU rules, and its off-TPU `ntt_mxu_force` has no counterpart (the route
+depends on the config alone; on CPU tensors every kernel runs its plain
+version).  One process-global config, read when a plan is built.
 """
 
 from __future__ import annotations
@@ -20,6 +22,13 @@ class TorchPlonkConfig:
                                         # (None = size-adaptive, ops/msm.py)
     msm_chunk_len: int = 256            # sequential depth of the chunk scan
                                         # (kernel K11a's step count)
+    msm_group_slots: int = 1 << 25      # (row, point) slots one pass of
+                                        # the MSM holds at once: the rows
+                                        # of a commit batch (commits x
+                                        # windows) go in balanced groups of
+                                        # at most slots // n_pad rows, ~640
+                                        # bytes of device memory a slot
+                                        # (ops/msm.py::MsmPlan._row_groups)
     ec_scan_em: bool = False            # chunk scan with element-major
                                         # output (kernel K12, ops/msm.py)
     ntt_mxu_min_k: int | None = None    # four-step int8 tensor-core NTT

@@ -56,8 +56,8 @@ def test_setup_device_equals_host_setup():
     assert dev.packed[0].shape == (24, (1 << 5) + 7)
     assert torch.equal(dev.packed[2], one.expand_as(dev.packed[2]))
     assert set(dev.setup_timings) == {"window_tables", "pack_tables",
-                                      "tau_ladder", "device_reduce",
-                                      "to_affine", "g2"}
+                                      "tau_ladder", "pack_ladder",
+                                      "device_reduce", "to_affine", "g2"}
 
 
 def test_compile_device_equals_host_compile_k7():
@@ -78,8 +78,8 @@ def test_compile_device_equals_host_compile_k7():
     verifier.verify(proof_d, pis_d)
     verifier_d.verify(proof_d, pis_d)
     assert set(prover_d.engine.compile_timings) == {
-        "synthesize", "pack_columns", "polys", "pack_srs", "commit15",
-        "engine"}
+        "synthesize", "pack_columns", "sigma_permutation", "polys",
+        "pack_srs", "commit15", "engine"}
 
 
 def _jax_packed_params(k, seed):
