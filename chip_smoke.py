@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port (dusk_plonk_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases env,kernels,small,full,msm,alt,large]
+    python3 chip_smoke.py [--phases env,kernels,small,full,msm,alt,large,
+                                    sharded]
 
 Phases, one summary line each (more for kernels):
   1. env: the card, torch / CUDA / nvcc versions, and the build of the
@@ -32,7 +33,22 @@ Phases, one summary line each (more for kernels):
      a warm and a timed proof verified on the host, per-step times and
      peak GiB, each kernel's launches by shape with device ms beside its
      bound, and one 2^20 commitment equal under the default cap, under
-     one row a group and on the host C++ MSM.
+     one row a group and on the host C++ MSM;
+  8. sharded: the multi-device engine (proving/sharded_engine.py) on a
+     one-process mesh whose D shards all live on cuda:0: phase small's
+     mixed circuit at D = 2 and 8 and the n = 64 wide circuit at D = 8,
+     each proof equal to the host oracle's and verified; the 2^16 bench
+     circuit at D = 4 and 8 from phase full's device key, a warm and two
+     timed proofs each equal to the single-device engine's proof from the
+     same seed and verified, with per-round times, launches by kernel and
+     shape and the tracer's collective bytes beside the scaling model's;
+     ShardedMsm at 2^16 over 4 shards under both tiers, equal to the host
+     C++ MSM.  Every kernel at every shape that the small proofs, the
+     warm 2^16 proofs and the warm ShardedMsm calls launch (ShapeCapture
+     keeps each shape's first arguments) is held against its plain
+     version limb for limb.
+     One card: the collectives are device-local copies, so no time here
+     measures scaling.
 
 Then a JSON line of per-kernel results (with each kernel's bound), the
 card's name and power limit, and, last, {"ok": true, "device": {...}}.  Any
@@ -44,6 +60,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -53,9 +71,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "kernels", "small", "full", "msm", "alt", "large")
+PHASES = ("env", "kernels", "small", "full", "msm", "alt", "large",
+          "sharded")
 K = 16          # log2 constraints of the full-width proof (bench.py's 2^16)
 K_LARGE = 20    # and of the large proof (bench.py's 2^20)
+SHARDS = (4, 8)  # the sharded 2^16 proof's mesh sizes, all on cuda:0
 
 
 def say(phase, **fields):
@@ -289,7 +309,7 @@ def mont_mul_entry(F, a, b):
     entry = _build.lib().dt_mont_mul
     args = (F.L, kernels._ptr(ea), *sa, kernels._ptr(eb), *sb,
             kernels._ptr(out), math.prod(shape[:-2]), shape[-1],
-            kernels._stream())
+            kernels._stream(out.device))
 
     def launch():
         _build.check(entry(*args), "mont_mul")
@@ -305,7 +325,8 @@ def add_mixed_entry(p, q2):
     out = tuple(torch.empty_like(p[0]) for _ in range(3))
     entry = _build.lib().dt_ec_add_mixed
     args = (*(kernels._ptr(c) for c in p + q2 + out),
-            math.prod(p[0].shape[:-2]), p[0].shape[-1], kernels._stream())
+            math.prod(p[0].shape[:-2]), p[0].shape[-1],
+            kernels._stream(out[0].device))
 
     def launch():
         _build.check(entry(*args), "ec_add_mixed")
@@ -1127,7 +1148,7 @@ def phase_full(k):
              if counts["proof"][name] != 3 * want}
     if moved:
         raise AssertionError(f"launches a proof moved: {moved}")
-    return counts
+    return counts, (pp, prover, verifier)
 
 
 def phase_msm(phase="msm", need=("ec_combine",)):
@@ -1453,6 +1474,337 @@ def phase_large(k):
     return counts
 
 
+def wide_circuit():
+    """tests/test_sharded_engine.py's circuit: > 32 gates, so n = 64 and
+    both domains take the four-step route at D = 8."""
+    from dusk_plonk_torch.prelude import Circuit, Constraint
+
+    class WideCircuit(Circuit):
+        def __init__(self, a=3):
+            self.a = a
+
+        def synthesize(self, c):
+            w = c.append_witness(self.a)
+            c.component_boolean(c.append_witness(1))
+            acc = w
+            for _ in range(40):
+                acc = c.gate_mul(Constraint().mult(1).a(acc).b(w))
+
+    return WideCircuit
+
+
+def _routes(engine):
+    d = engine.D
+    return {dom: "four-step" if (1 << k) % (d * d) == 0 else "fallback"
+            for dom, k in (("n", engine.k), ("8n", engine.k8))}
+
+
+def sharded_small(name, circuit, args, d, rate, capture):
+    """A k = 7 SRS, host keys: the ShardedEngine's proof on d shards of
+    cuda:0 against the host oracle's from the same seed, under `capture`
+    (a ShapeCapture), whose kernels are then held against their plain
+    versions at each shape not yet held."""
+    import torch
+    from dusk_plonk_torch.parallel.mesh import Mesh
+    from dusk_plonk_torch.prelude import ChaCha12Rng, PlonkKey, PlonkParams
+    from dusk_plonk_torch.proving.sharded_engine import ShardedEngine
+    rng_h = ChaCha12Rng.seed_from_u64(8349)
+    prover_h, verifier = PlonkKey.compile(PlonkParams.setup(7, rng_h),
+                                          circuit)
+    proof_h, pis_h = prover_h.create_proof(rng_h, circuit(*args))
+    rng = ChaCha12Rng.seed_from_u64(8349)
+    prover, _ = PlonkKey.compile(PlonkParams.setup(7, rng), circuit)
+    engine = ShardedEngine(prover, mesh=Mesh(["cuda:0"] * d))
+    prover.use_device_engine(engine)
+    t0 = time.perf_counter()
+    with capture:
+        proof, pis = prover.create_proof(rng, circuit(*args))
+    torch.cuda.synchronize()
+    proof_s = time.perf_counter() - t0
+    if pis != pis_h or proof.to_bytes() != proof_h.to_bytes():
+        raise AssertionError(f"sharded {name} d={d}: proof differs from "
+                             f"the host oracle's")
+    verifier.verify(proof, pis)
+    say("sharded", circuit=name, d=d, n=engine.n, n8=engine.n8,
+        ns=engine.ns, nsd=engine.nsd, routes=_routes(engine),
+        equal_to_host=True, verified=True, proof_s=proof_s)
+    capture.check(rate, d=d, path=f"{name} circuit")
+
+
+def _arg_sig(x):
+    """The shape signature of a wrapper argument: tensors by shape and
+    strides, fields and groups by limb count, tables' passes by value."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.stride()
+    if isinstance(x, (tuple, list)):
+        return tuple(_arg_sig(v) for v in x)
+    if x is None or isinstance(x, (int, str)) or dataclasses.is_dataclass(x):
+        return x
+    return type(x).__name__, getattr(x, "L", None)
+
+
+def _arg_copy(x):
+    """A copy of a wrapper argument that keeps every tensor's strides (a
+    broadcast operand stays broadcast), so the copy launches as the
+    original did."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        if x.numel() == 0:
+            return x.clone()
+        span = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+        return x.as_strided((span,), (1,)).clone().as_strided(
+            x.shape, x.stride())
+    if isinstance(x, tuple):
+        return tuple(_arg_copy(v) for v in x)
+    if isinstance(x, list):
+        return [_arg_copy(v) for v in x]
+    return x
+
+
+def _plain_versions():
+    """Each kernel wrapper a proof reaches -> its plain version in the
+    kernel's own order (the CPU route's), so the two agree limb for
+    limb."""
+    from dusk_plonk_torch.ops import kernels as kn
+    return {
+        "mont_mul": kn.mont_mul_plain, "ntt": kn.ntt_plain,
+        "ec_add": kn.ec_add_plain, "ec_scan_mixed": kn.ec_scan_mixed_plain,
+        "ec_sum_steps": lambda G1, g: kn.ec_sum_steps_plain(
+            G1, g, kn._sum_block(g[0].shape[0], g[0].shape[-1])),
+        "ec_scan_excl": lambda G1, g: kn.ec_scan_excl_plain(
+            G1, g, kn._excl_block(g[0].shape[0])),
+        "ec_double_add": kn.ec_double_add_plain,
+        "ec_combine": kn.ec_combine_plain}
+
+
+class _KernelsProxy:
+    """Stands for the `kernels` module in the modules that launch: the
+    wrappers in `hooks`, everything else the module's own."""
+
+    def __init__(self, real, hooks):
+        self.__dict__.update(hooks)
+        self._real = real
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+class ShapeCapture:
+    """While active, keeps a copy of the arguments of the first call of
+    each kernel wrapper (`_plain_versions`) at each argument shape that no
+    earlier `check` has held: ops/limb.py, ops/ntt.py and ops/ec.py, the
+    modules that launch every kernel of a proof, see a proxy of `kernels`
+    in place of the module.  The wrappers and their launch counters are
+    untouched.  `check(rate)` then runs each kernel on its kept arguments
+    and holds the result against its plain version limb for limb: every
+    kernel at every shape the captured path launched, on the path's own
+    data."""
+
+    def __init__(self):
+        self.kept, self.done, self.errs = {}, set(), {}
+
+    def __enter__(self):
+        from dusk_plonk_torch.ops import ec, kernels, limb, ntt
+        self._mods = (ec, limb, ntt)
+        hooks = {}
+        for name in _plain_versions():
+            def kept(*args, name=name, fn=getattr(kernels, name)):
+                key = (name, _arg_sig(args))
+                if key not in self.kept and key not in self.done:
+                    self.kept[key] = _arg_copy(args)
+                return fn(*args)
+            hooks[name] = kept
+        proxy = _KernelsProxy(kernels, hooks)
+        for mod in self._mods:
+            mod.kernels = proxy
+        return self
+
+    def __exit__(self, *exc):
+        from dusk_plonk_torch.ops import kernels
+        for mod in self._mods:
+            mod.kernels = kernels
+
+    def check(self, rate, **case):
+        """Hold each kept call's kernel against its plain version (one
+        line each); raises on the first disagreement.  Launches made here
+        add to the wrappers' counters: read those before."""
+        from dusk_plonk_torch.ops import kernels
+        plain = _plain_versions()
+        for key, args in self.kept.items():
+            name = key[0]
+            fn = getattr(kernels, name)
+            with LaunchLog((name,)) as log:
+                out = fn(*args)
+            ref, plain_ms = cuda_once(lambda: plain[name](*args))
+            err = max_abs_err(out, ref)
+            work = [sum(w[i] for *_, w, _ in log.entries) for i in (0, 1)]
+            bound_ms, bound_by = bound(*work, rate)
+            say("sharded", kernel=name, **case,
+                shape="; ".join(cls for _, cls, *_ in log.entries),
+                max_abs_err=err, ms=cuda_ms(lambda: fn(*args), 5),
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+            if err != 0:
+                raise AssertionError(f"sharded {name} {case}: kernel != "
+                                     f"plain ({err}) at {key[1]}")
+            self.errs[name] = max(self.errs.get(name, 0), err)
+            self.done.add(key)
+        self.kept = {}
+
+
+def sharded_bench(k, key, d, ref, rate, capture):
+    """The 2^k bench circuit's proof on d shards of cuda:0 from phase
+    full's device key: a warm and two timed proofs, each equal to the
+    single-device engine's `ref` (proof, public inputs) from seed 77 and
+    verified; the warm proof under `capture` (a ShapeCapture), whose
+    kernels are held against their plain versions at every shape not yet
+    held before the timed proofs.  Returns the launches of a timed proof
+    by kernel."""
+    import torch
+    from dusk_plonk_torch.ops import kernels
+    from dusk_plonk_torch.parallel.mesh import Mesh
+    from dusk_plonk_torch.parallel.model import proof_collective_bytes
+    from dusk_plonk_torch.prelude import ChaCha12Rng
+    from dusk_plonk_torch.proving.sharded_engine import ShardedEngine
+    from dusk_plonk_torch.utils.tracing import tracer
+    Bench = bench_circuit(k)
+    _, prover, verifier = key
+    single = prover.engine
+    t0 = time.perf_counter()
+    engine = ShardedEngine(
+        prover, mesh=Mesh(["cuda:0"] * d), sel_polys=single.sel_polys,
+        sigma_polys=single.sigma_polys, srs=single.srs,
+        wire_plan=single._wire_plan)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prover.use_device_engine(engine)
+    try:
+        times, rounds, peaks = [], [], []
+        with LaunchLog() as log:
+            for i in range(3):                      # the first is warm
+                if i == 1:
+                    # the warm proof's shapes, before the timed proofs'
+                    # counts and peaks (check drops the kept copies)
+                    capture.check(rate, d=d, path=f"2^{k} proof")
+                    first = len(log.entries)
+                    kernels.reset_launches()
+                    tracer.reset()
+                t0 = time.perf_counter()
+                with capture if i == 0 else contextlib.nullcontext():
+                    proof, pis = prover.create_proof(
+                        ChaCha12Rng.seed_from_u64(77), Bench(3))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                rounds.append(dict(engine.last_timings))
+                peaks.append({r: v / 2 ** 30
+                              for r, v in engine.last_peaks.items()})
+                if proof.to_bytes() != ref[0].to_bytes() or pis != ref[1]:
+                    raise AssertionError(f"sharded d={d}: proof {i} differs "
+                                         f"from the single-device engine's")
+            counts = kernels.launch_counts()
+            classes = log.classes(start=first)
+    finally:
+        prover.use_device_engine(single)
+    verifier.verify(proof, pis)
+    rep = tracer.report()
+    per_proof = {c: v / 2 for c, v in rep["counters"].items()}
+    best = min((1, 2), key=lambda i: times[i])
+    say("sharded", k=k, d=d, n_local=engine.n // d,
+        nsd_local=engine.nsd // d, n8_local=engine.n8 // d,
+        routes=_routes(engine), build_s=build_s, warm_s=times[0],
+        proof_s=times[1:], best_s=times[best], rounds_best=rounds[best],
+        rounds_warm=rounds[0], peak_gb_best=peaks[best],
+        equal_to_single_device=True, verified=True,
+        launches_a_proof={n: v / 2 for n, v in counts.items()},
+        tracer_a_proof=per_proof,
+        model_collective_bytes=proof_collective_bytes(k, d),
+        gpu=nvidia_smi_line())
+    say("sharded", k=k, d=d, launches_a_proof_by_shape={
+        f"{name} {cls}": v / 2 for (name, cls), v in
+        sorted(classes.items())})
+    missing = [n for n in ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
+                           "ec_sum_steps", "ec_scan_excl", "ec_double_add",
+                           "ec_combine") if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"sharded d={d}: never launched on the "
+                             f"sharded proof path: {missing}")
+    del engine
+    torch.cuda.empty_cache()
+    return {name: v // 2 for name, v in counts.items()}
+
+
+def sharded_msm(pp, n, d, rate, capture):
+    """ShardedMsm over d shards of cuda:0 on the first n SRS points and
+    seeded scalars, under both tiers, each equal to the host C++ MSM; the
+    warm calls under `capture`, whose kernels are held against their
+    plain versions at each shape not yet held before the timed call."""
+    import numpy as np
+    import torch
+    from dusk_plonk_torch import native
+    from dusk_plonk_torch.fields.constants import R_MOD
+    from dusk_plonk_torch.ops.limb import fr_field
+    from dusk_plonk_torch.parallel import mesh as M
+    from dusk_plonk_torch.parallel.msm import ShardedMsm
+    mesh = M.Mesh(["cuda:0"] * d)
+    rng = np.random.default_rng(8349)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % R_MOD
+               for _ in range(n)]
+    points = tuple(M.shard(mesh, c[:, :n].contiguous()) for c in pp.packed)
+    limbs = M.shard(mesh, fr_field().pack(scalars, "cuda",
+                                          to_mont=False)[None])
+    t0 = time.perf_counter()
+    host = native.g1_msm(pp.powers[:n], scalars)
+    host_s = time.perf_counter() - t0
+    for tier in ("pippenger", "bit_serial"):
+        smsm = ShardedMsm(mesh, mesh.axis, n, tier)
+        prepared = smsm.prepare_points(points)
+        with capture:
+            smsm.msm_affine_batch(prepared, limbs)          # warm
+        capture.check(rate, d=d, path=f"ShardedMsm {tier} n={n}")
+        t0 = time.perf_counter()
+        got = smsm.msm_affine_batch(prepared, limbs)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if got != host:
+            raise AssertionError(f"sharded msm {tier}: differs from the "
+                                 f"host C++ MSM")
+        say("sharded", msm_tier=tier, n=n, d=d, s=wall, points_per_s=n / wall,
+            equal_to_host=True, host_msm_s=host_s)
+
+
+def phase_sharded(k, key):
+    """The multi-device engine on a one-process mesh of cuda:0 (see the
+    module docstring).  `key` is phase full's (pp, prover, verifier), or
+    None to make it here.  Returns ({d: launches of a timed proof},
+    {kernel: max error at the sharded shapes})."""
+    import torch
+    from dusk_plonk_torch.prelude import ChaCha12Rng, PlonkKey, PlonkParams
+    from dusk_plonk_torch.parallel.mesh import default_mesh
+    rate = int_mul_rate()
+    cards = default_mesh().devices
+    if cards != tuple(torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())):
+        raise AssertionError(f"default_mesh: {cards}")
+    say("sharded", default_mesh=[str(c) for c in cards])
+    capture = ShapeCapture()
+    sharded_small("mixed", mixed_circuit(), (13, 5), 2, rate, capture)
+    sharded_small("mixed", mixed_circuit(), (13, 5), 8, rate, capture)
+    sharded_small("wide", wide_circuit(), (3,), 8, rate, capture)
+    if key is None:
+        pp = PlonkParams.setup_device(k, ChaCha12Rng.seed_from_u64(8349))
+        key = (pp,) + PlonkKey.compile_device(pp, bench_circuit(k))
+    pp, prover, _ = key
+    ref = prover.create_proof(ChaCha12Rng.seed_from_u64(77),
+                              bench_circuit(k)(3))
+    torch.cuda.synchronize()
+    counts = {d: sharded_bench(k, key, d, ref, rate, capture)
+              for d in SHARDS}
+    sharded_msm(pp, 1 << k, 4, rate, capture)
+    say("sharded", shapes_held=len(capture.done),
+        max_abs_err_by_kernel=capture.errs)
+    return counts, capture.errs
+
+
 PR = "dusk_plonk_tpu/ops/pallas_field.py"
 SOURCES = {
     "mont_mul": ("dusk_plonk_torch/csrc/mont_mul.cu", f"{PR}:1314"),
@@ -1516,6 +1868,7 @@ def main():
                       "group_rows": plan20.group_slots // plan20.n_pad}}
 
     results, counts = {}, {"msm": {}, "alt": {}}
+    full_key, sharded_results = None, {}
     walls = {}
     for name in PHASES:
         if name not in phases:
@@ -1528,13 +1881,16 @@ def main():
         elif name == "small":
             phase_small()
         elif name == "full":
-            counts.update(phase_full(K))
+            full_counts, full_key = phase_full(K)
+            counts.update(full_counts)
         elif name == "msm":
             counts["msm"] = phase_msm()[0]
         elif name == "alt":
             counts["alt"] = phase_alt(K)
         elif name == "large":
             counts["large"] = phase_large(K_LARGE)
+        elif name == "sharded":
+            counts["sharded"], sharded_results = phase_sharded(K, full_key)
         walls[name] = time.perf_counter() - t0
         say("wall", of=name, s=walls[name])
 
@@ -1552,6 +1908,11 @@ def main():
                "library_ms": None,
                "launches_k20_proof": counts.get("large", {}).get(
                    "proof", {}).get(name)}
+        for d in SHARDS:
+            row[f"launches_sharded_d{d}_proof"] = counts.get(
+                "sharded", {}).get(d, {}).get(name)
+        if name in sharded_results:
+            row["max_abs_err_sharded_shapes"] = sharded_results[name]
         for key in ("max_abs_err_affine_vs_sequential",
                     "max_abs_err_vs_ladder"):
             if key in r:

@@ -26,8 +26,9 @@ tuples of int32 Montgomery limb planes, the layout of ops/ec.py.
 Rules every wrapper keeps: on CPU tensors it runs the plain version; on
 CUDA tensors it launches its kernel or raises (there is no fallback).  It
 checks dtype, shape and contiguity, allocates outputs with torch.empty,
-launches on torch.cuda.current_stream(), and adds one to its `launches`
-count at each kernel launch and nowhere else.  The `*_plain` functions run
+launches on its tensors' device and that device's current stream
+(`_launch`), and adds one to its `launches` count at each kernel launch
+and nowhere else.  The `*_plain` functions run
 on any device and never launch a kernel: the CPU path and the on-card
 comparisons use them.
 
@@ -53,8 +54,9 @@ def _is_cpu(*ts) -> bool:
     devs = {t.device.type for t in ts}
     if devs == {"cpu"}:
         return True
-    if devs != {"cuda"}:
-        raise ValueError(f"operands on mixed devices: {sorted(devs)}")
+    if devs != {"cuda"} or len({t.device for t in ts}) > 1:
+        raise ValueError(f"operands on mixed devices: "
+                         f"{sorted({str(t.device) for t in ts})}")
     return False
 
 
@@ -64,8 +66,16 @@ def _check_int32(*ts):
             raise TypeError(f"limb tensors must be int32, got {t.dtype}")
 
 
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(entry, t, *args):
+    """Call the C entry point `entry` with `args` and a stream, on the
+    device of tensor t: that device made current for the launch, and its
+    current stream, so that a shard on another card launches there."""
+    with torch.cuda.device(t.device):
+        return entry(*args, _stream(t.device))
 
 
 def _ptr(t):
@@ -207,8 +217,8 @@ def mont_mul(F, a, b):
     ea, sa = _row_strides(a, shape)
     eb, sb = _row_strides(b, shape)
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    rc = _build.lib().dt_mont_mul(F.L, _ptr(ea), *sa, _ptr(eb), *sb,
-                                  _ptr(out), rows, n, _stream())
+    rc = _launch(_build.lib().dt_mont_mul, out,
+                 F.L, _ptr(ea), *sa, _ptr(eb), *sb, _ptr(out), rows, n)
     mont_mul.launches += 1
     _build.check(rc, "mont_mul")
     return out
@@ -405,12 +415,12 @@ def ntt(F, x, k: int, steps, pre=None, post=None):
             post_t, post_mode = None, 0
         pre_t = pre if i == 0 else None
         dst = bufs[i % 2]
-        rc = lib.dt_ntt_pass(
-            _ptr(src), _ptr(dst), _ptr(roots),
+        rc = _launch(
+            lib.dt_ntt_pass, src, _ptr(src), _ptr(dst), _ptr(roots),
             null if pre_t is None else _ptr(pre_t),
             null if post_t is None else _ptr(post_t), batch, k, p.log_m,
             p.lines, p.D, p.in_a, p.in_b, p.in_s, p.out_a, p.out_b, p.out_s,
-            int(pre_t is not None), post_mode, _stream())
+            int(pre_t is not None), post_mode)
         ntt.launches += 1
         _build.check(rc, "ntt")
         src = dst
@@ -438,8 +448,8 @@ def ec_add(G1, p, q):
             raise ValueError("ec_add: operands must be contiguous, one shape")
     rows = math.prod(shape[:-2])
     out = tuple(torch.empty_like(p[0]) for _ in range(3))
-    rc = _build.lib().dt_ec_add(*(_ptr(c) for c in p + q + out), rows,
-                                shape[-1], _stream())
+    rc = _launch(_build.lib().dt_ec_add, out[0],
+                 *(_ptr(c) for c in p + q + out), rows, shape[-1])
     ec_add.launches += 1
     _build.check(rc, "ec_add")
     return out
@@ -468,9 +478,9 @@ def ec_add_mixed(G1, p, q2):
             raise ValueError("ec_add_mixed: operands must be contiguous, "
                              "one shape")
     out = tuple(torch.empty_like(p[0]) for _ in range(3))
-    rc = _build.lib().dt_ec_add_mixed(*(_ptr(c) for c in p + q2 + out),
-                                      math.prod(shape[:-2]), shape[-1],
-                                      _stream())
+    rc = _launch(_build.lib().dt_ec_add_mixed, out[0],
+                 *(_ptr(c) for c in p + q2 + out), math.prod(shape[:-2]),
+                 shape[-1])
     ec_add_mixed.launches += 1
     _build.check(rc, "ec_add_mixed")
     return out
@@ -500,8 +510,8 @@ def ec_scan_mixed(G1, g):
     cl, _, lanes = g.shape
     out = tuple(torch.empty((cl, 24, lanes), dtype=torch.int32,
                             device=g.device) for _ in range(3))
-    rc = _build.lib().dt_ec_scan_mixed(_ptr(g), *(_ptr(c) for c in out),
-                                       cl, lanes, _stream())
+    rc = _launch(_build.lib().dt_ec_scan_mixed, g,
+                 _ptr(g), *(_ptr(c) for c in out), cl, lanes)
     ec_scan_mixed.launches += 1
     _build.check(rc, "ec_scan_mixed")
     return out
@@ -547,8 +557,8 @@ def ec_scan_mixed_em(G1, g):
     _check_scan_input("ec_scan_mixed_em", g)
     cl, _, lanes = g.shape
     out = torch.empty((cl, lanes, 72), dtype=torch.int32, device=g.device)
-    rc = _build.lib().dt_ec_scan_mixed_em(_ptr(g), _ptr(out), cl, lanes,
-                                          _scan_team(lanes), _stream())
+    rc = _launch(_build.lib().dt_ec_scan_mixed_em, g,
+                 _ptr(g), _ptr(out), cl, lanes, _scan_team(lanes))
     ec_scan_mixed_em.launches += 1
     _build.check(rc, "ec_scan_mixed_em")
     return out
@@ -656,8 +666,8 @@ def ec_sum_steps(G1, g):
         return ec_sum_steps_plain(G1, g, block)
     _check_points("ec_sum_steps", g, 3)
     out = _empty_points((24, lanes), g[0])
-    rc = _build.lib().dt_ec_sum_steps(*(_ptr(c) for c in g + out), steps,
-                                      lanes, *block, _stream())
+    rc = _launch(_build.lib().dt_ec_sum_steps, g[0],
+                 *(_ptr(c) for c in g + out), steps, lanes, *block)
     ec_sum_steps.launches += 1
     _build.check(rc, "ec_sum_steps")
     return out
@@ -721,8 +731,8 @@ def ec_scan_excl(G1, g):
     shape = _check_points("ec_scan_excl", g, 3)
     out = _empty_points(shape, g[0])
     T, m = _excl_block(steps)
-    rc = _build.lib().dt_ec_scan_excl(*(_ptr(c) for c in g + out), steps,
-                                      shape[-1], T, m, _stream())
+    rc = _launch(_build.lib().dt_ec_scan_excl, g[0],
+                 *(_ptr(c) for c in g + out), steps, shape[-1], T, m)
     ec_scan_excl.launches += 1
     _build.check(rc, "ec_scan_excl")
     return out
@@ -746,8 +756,8 @@ def ec_double_add(G1, a, b, k: int):
         return ec_double_add_plain(G1, a, b, k)
     shape = _check_points("ec_double_add", a + b, 2)
     out = _empty_points(shape, a[0])
-    rc = _build.lib().dt_ec_double_add(*(_ptr(c) for c in a + b + out), k,
-                                       shape[-1], _stream())
+    rc = _launch(_build.lib().dt_ec_double_add, a[0],
+                 *(_ptr(c) for c in a + b + out), k, shape[-1])
     ec_double_add.launches += 1
     _build.check(rc, "ec_double_add")
     return out
@@ -786,8 +796,8 @@ def ec_combine(G1, g, c: int):
         return ec_combine_plain(G1, g, c)
     windows, _, lanes = _check_points("ec_combine", g, 3)
     out = _empty_points((24, lanes), g[0])
-    rc = _build.lib().dt_ec_combine(*(_ptr(t) for t in g + out), windows, c,
-                                    lanes, _stream())
+    rc = _launch(_build.lib().dt_ec_combine, g[0],
+                 *(_ptr(t) for t in g + out), windows, c, lanes)
     ec_combine.launches += 1
     _build.check(rc, "ec_combine")
     return out
@@ -853,9 +863,8 @@ def reduce_planes(F, planes):
     n = planes.shape[-1]
     out = torch.empty(planes.shape[:-2] + (16, n), dtype=torch.int32,
                       device=planes.device)
-    rc = _build.lib().dt_reduce_planes(_ptr(planes), _ptr(out),
-                                       math.prod(planes.shape[:-2]), n,
-                                       _stream())
+    rc = _launch(_build.lib().dt_reduce_planes, planes,
+                 _ptr(planes), _ptr(out), math.prod(planes.shape[:-2]), n)
     reduce_planes.launches += 1
     _build.check(rc, "reduce_planes")
     return out

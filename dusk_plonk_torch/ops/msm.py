@@ -43,6 +43,7 @@ import torch
 
 from .. import native
 from ..utils.config import get_config
+from ..utils.tracing import tracer
 from .ec import device_g1
 from .limb import fq_field
 
@@ -255,6 +256,8 @@ class MsmPlan:
         if limbs.dim() == 2:
             limbs = limbs[None]
         B, W = limbs.shape[0], self.num_windows
+        tracer.count("msm_dispatch")
+        tracer.count("msm_points", self.n * B)
         tot = self.window_totals(em, limbs)
         msb = tuple(c.reshape(24, B, W).flip(-1).permute(2, 0, 1)
                     .contiguous() for c in tot)                # (W, 24, B)
@@ -264,6 +267,8 @@ class MsmPlan:
         """em: a prepare_points table; limbs_stack (B, 16, n) canonical
         scalar limbs.  Returns B affine host points ((x, y) or None)."""
         B, W = limbs_stack.shape[0], self.num_windows
+        tracer.count("msm_dispatch")
+        tracer.count("msm_points", self.n * B)
         tot = self.window_totals(em, limbs_stack)
         arrs = [c.T.reshape(B, W, 24).cpu().numpy().astype("<u2")
                 for c in tot]                                  # (B, W, 24)

@@ -34,6 +34,7 @@ from ..ops.limb import fr_field, int_to_limbs
 from ..ops.msm import MsmPlan
 from ..ops.ntt import NttPlan
 from ..utils.timing import Marks
+from ..utils.tracing import tracer
 from . import widgets
 from .keys import SELECTOR_NAMES
 from .proof import Proof
@@ -85,7 +86,11 @@ class TorchEngine:
     packed from the prover's host key.  Device key compilation
     (proving/keys.py::compile_circuit_device) passes its own tensors, its
     MsmPlan and prepared SRS table (msm, srs_em) and the circuit's wire
-    plan (build_wire_plan)."""
+    plan (build_wire_plan).
+
+    The hooks below are the seams where ShardedEngine
+    (proving/sharded_engine.py) swaps in the distributed pieces; on one
+    device each is the plain call or a no-op, as in the JAX engine."""
 
     def __init__(self, prover, device, sel_polys=None, sigma_polys=None,
                  srs=None, msm=None, srs_em=None, wire_plan=None):
@@ -110,10 +115,13 @@ class TorchEngine:
             srs = self.G1.pack_points(prover.keypair.powers, device)
         else:
             srs = tuple(as_limbs(c, device) for c in srs)
+        self.srs = srs
         self.ns = srs[0].shape[-1]
-        self.msm = msm if msm is not None else MsmPlan(self.ns)
-        self.srs_em = srs_em if srs_em is not None else \
-            self.msm.prepare_points(srs)
+        # nsd >= ns is the width of every SRS-length buffer: a mesh rounds
+        # it up to a multiple of its shards (zero coefficients change no
+        # commitment or evaluation)
+        self.nsd = self._device_width(self.ns)
+        self.msm, self.srs_em = self._make_msm(msm, srs_em)
 
         # --- key polynomials (n-degree coefficient form) --------------------
         if sel_polys is None:
@@ -129,6 +137,7 @@ class TorchEngine:
         # synthesis runs witness-only and wire packing is one numpy gather
         self._wire_plan = wire_plan
         self._build_tables()
+        self._stage_tables()
 
     # -- fast witness synthesis -----------------------------------------------
 
@@ -162,7 +171,7 @@ class TorchEngine:
         wires = np.moveaxis(wit[cols], -1, 1).astype(np.int32)  # (4, 16, n)
         return cs, np.ascontiguousarray(wires)
 
-    # -- hooks (the seams of a later multi-GPU engine) -----------------------------
+    # -- hooks (the seams of the sharded engine) ------------------------------
 
     def _t_n(self, x, kind):
         """n-domain transform of (..., 16, n); kind in {dft, idft}."""
@@ -179,12 +188,29 @@ class TorchEngine:
     def _batch_inv(self, x):
         return self.F.batch_inv(x)
 
-    def _constrain(self, x):
-        """Pin the placement of an intermediate (no-op on one device)."""
-        return x
-
     def _stage_dom(self, x):
         """Place a per-proof (..., 16, n) input (no-op on one device)."""
+        return x
+
+    def _make_msm(self, msm, srs_em):
+        """(MSM plan, its prepared SRS table) for _commit_batch, built
+        unless given (a mesh builds its own in _stage_tables)."""
+        msm = msm if msm is not None else MsmPlan(self.ns)
+        return msm, srs_em if srs_em is not None else \
+            msm.prepare_points(self.srs)
+
+    def _stage_tables(self):
+        """Place the tables and the SRS after _build_tables (no-op on one
+        device; a mesh shards them)."""
+
+    def _device_width(self, ns: int) -> int:
+        """Width of SRS-length buffers (a mesh: a multiple of its
+        shards)."""
+        return ns
+
+    def _whole(self, x):
+        """The whole of an intermediate on this engine's device, for the
+        steps that run unsharded (no-op on one device; a mesh gathers)."""
         return x
 
     # -- one-time table construction --------------------------------------------------
@@ -194,13 +220,13 @@ class TorchEngine:
         # 16 n-degree polys padded to 8n: 11 selectors, 4 sigmas, L1
         e1 = torch.zeros((16, n), dtype=torch.int32, device=dev)
         e1[:, :1] = F.const("one_mont", dev)
-        l1_poly = self._t_n(e1, "idft")
+        l1_poly = self.plan_n.idft(e1)
         polys = torch.cat([self.sel_polys, self.sigma_polys, l1_poly[None]])
         pad8 = torch.nn.functional.pad(polys, (0, n8 - n))
-        evs = self._t_8n(pad8, "coset_dft")                    # (16, 16, n8)
+        evs = self.plan_8n.coset_dft(pad8)                     # (16, 16, n8)
         self.sel8, self.sig8, self.l1_8 = evs[:11], evs[11:15], evs[15]
         # sigma evals over the n domain (round-2 denominators)
-        self.sigma_evals_n = self._t_n(self.sigma_polys, "dft")
+        self.sigma_evals_n = self.plan_n.dft(self.sigma_polys)
 
         # coset vanishing inverse: (g w8n^i)^n - 1 has period n8 / n
         period = n8 // n
@@ -229,8 +255,7 @@ class TorchEngine:
         """Place an n-coeff poly (..., 16, n) into a width buffer and add
         (sum b_i X^i)(X^n - 1); blinders (..., 16, h+1)."""
         F, n = self.F, self.n
-        buf = self._constrain(
-            torch.nn.functional.pad(poly, (0, width - n)))
+        buf = torch.nn.functional.pad(poly, (0, width - n))
         for i in range(blinders.shape[-1]):
             b = blinders[..., i:i + 1]
             buf[..., n + i:n + i + 1] = F.add(buf[..., n + i:n + i + 1], b)
@@ -243,38 +268,61 @@ class TorchEngine:
 
     def _round1(self, wire_vals, blinders):
         polys = self._t_n(wire_vals, "idft")
-        bufs = self._blind_into(polys, blinders, self.ns)
+        bufs = self._blind_into(polys, blinders, self.nsd)
         return bufs, self.F.from_mont(bufs)
 
-    def _round2(self, wire_vals, beta, gamma, blinders):
-        F, n = self.F, self.n
-        bx = F.mul(beta, self.roots_n)                              # (16, n)
-        num = F.add(F.add(wire_vals, F.mul(self.ks, bx)), gamma)
-        den = F.add(F.add(wire_vals, F.mul(beta, self.sigma_evals_n)), gamma)
+    def _perm_products(self, wire_vals, roots, sigma_evals, ks, beta, gamma):
+        """Round 2's numerator and denominator products over the n domain
+        (or one shard of it)."""
+        F = self.F
+        bx = F.mul(beta, roots)                                     # (16, n)
+        num = F.add(F.add(wire_vals, F.mul(ks, bx)), gamma)
+        den = F.add(F.add(wire_vals, F.mul(beta, sigma_evals)), gamma)
         nprod = F.mul(F.mul(num[0], num[1]), F.mul(num[2], num[3]))
         dprod = F.mul(F.mul(den[0], den[1]), F.mul(den[2], den[3]))
+        return nprod, dprod
+
+    def _round2(self, wire_vals, beta, gamma, blinders):
+        """-> z(X) blinded at width nsd, and its canonical (1, 16, nsd)
+        commit batch."""
+        F, n = self.F, self.n
+        nprod, dprod = self._perm_products(
+            wire_vals, self.roots_n, self.sigma_evals_n, self.ks, beta, gamma)
         ratio = F.mul(nprod, self._batch_inv(dprod))
         incl = self._prefix_mul(ratio)
-        z = self._constrain(torch.cat(
-            [F.const("one_mont", self.device), incl[..., :n - 1]], dim=-1))
+        z = torch.cat([F.const("one_mont", self.device), incl[..., :n - 1]],
+                      dim=-1)
         z_poly = self._t_n(z, "idft")
-        buf = self._blind_into(z_poly, blinders, self.ns)
-        return buf, F.from_mont(buf)
+        buf = self._blind_into(z_poly, blinders, self.nsd)
+        return buf, F.from_mont(buf[None])
 
     def _round3_decomposed(self, wire_polys, z_poly, pi_dense, ch):
         """Challenges -> t(X) coefficients (8n), unchunked (E = n8)."""
-        F, ops, n8 = self.F, self.ops, self.n8
+        n8 = self.n8
         pi_poly = self._t_n(pi_dense, "idft")
 
         def pad8(x):
             return torch.nn.functional.pad(x, (0, n8 - x.shape[-1]))
 
-        batch = self._constrain(torch.cat(
-            [pad8(z_poly)[None], pad8(wire_polys), pad8(pi_poly)[None]]))
-        z8, a8, b8, c8, d8, pi8 = self._t_8n(batch, "coset_dft")
-        z_n, a_n, b_n, d_n = (torch.roll(x, -8, dims=-1)
-                              for x in (z8, a8, b8, d8))
-        s = {name: self.sel8[i] for i, name in enumerate(SELECTOR_NAMES)}
+        batch = torch.cat(
+            [pad8(z_poly)[None], pad8(wire_polys), pad8(pi_poly)[None]])
+        evs = self._t_8n(batch, "coset_dft")
+        nxt = tuple(torch.roll(evs[i], -8, dims=-1) for i in (0, 1, 2, 4))
+        tables = (self.sel8, self.sig8, self.l1_8, self.lin8, self.vh_inv8)
+        t = self._quotient(self.ops, tables, evs, nxt, ch)
+        return self._t_8n(t, "coset_idft")
+
+    def _quotient(self, ops, tables, evs, nxt, ch):
+        """The quotient grid t(X) / Z_H(X) over the 8n coset (or one shard
+        of it): tables (sel8, sig8, l1_8, lin8, vh_inv8), evs the six
+        coset evaluations (z, a, b, c, d, pi), nxt those of z, a, b, d at
+        the next gate (8 points on), ch the challenges, ops on their
+        device."""
+        F = self.F
+        sel8, sig8, l1_8, lin8, vh_inv8 = tables
+        z8, a8, b8, c8, d8, pi8 = evs
+        z_n, a_n, b_n, d_n = nxt
+        s = {name: sel8[i] for i, name in enumerate(SELECTOR_NAMES)}
 
         t = widgets.arithmetic_quotient(
             ops, s["q_m"], s["q_l"], s["q_r"], s["q_o"], s["q_c"],
@@ -291,21 +339,19 @@ class TorchEngine:
         t = F.add(t, widgets.variable_base_quotient(
             ops, s["q_variable_group_add"], ch["var_base_sep"],
             a8, a_n, b8, b_n, c8, d8, d_n))
-        l1_alpha_sq = F.mul(self.l1_8, F.mul(ch["alpha"], ch["alpha"]))
-        sg = self.sig8
+        l1_alpha_sq = F.mul(l1_8, F.mul(ch["alpha"], ch["alpha"]))
         t = F.add(t, widgets.permutation_quotient(
-            ops, self.lin8, sg[0], sg[1], sg[2], sg[3], a8, b8, c8, d8,
+            ops, lin8, sig8[0], sig8[1], sig8[2], sig8[3], a8, b8, c8, d8,
             z8, z_n, ch["alpha"], l1_alpha_sq, ch["beta"], ch["gamma"]))
-        t = F.mul(t, self.vh_inv8)
-        return self._t_8n(t, "coset_idft")
+        return F.mul(t, vh_inv8)
 
     def _round3c(self, t_coeffs):
-        """t(X) -> four (16, ns) chunks (+ canonical copy) and the SRS-degree
+        """t(X) -> four (16, nsd) chunks (+ canonical copy) and the SRS-degree
         check: nonzero coefficients past 3n + ns mean an unsatisfied
         circuit (the reference errors at the t_4 commit)."""
         F, n, ns = self.F, self.n, self.ns
         tail_bad = bool((t_coeffs[..., 3 * n + ns:] != 0).any())
-        chunks = torch.zeros((4, F.L, ns), dtype=torch.int32,
+        chunks = torch.zeros((4, F.L, self.nsd), dtype=torch.int32,
                              device=self.device)
         for i in range(3):
             chunks[i, :, :n] = t_coeffs[..., i * n:(i + 1) * n]
@@ -313,18 +359,18 @@ class TorchEngine:
         chunks[3, :, :top.shape[-1]] = top
         return chunks, F.from_mont(chunks), tail_bad
 
-    def _pad_ns(self, x):
-        return torch.nn.functional.pad(x, (0, self.ns - x.shape[-1]))
+    def _pad_nsd(self, x):
+        return torch.nn.functional.pad(x, (0, self.nsd - x.shape[-1]))
 
     def _evals(self, wire_polys, z_poly, chunks, z_ch, zw):
         F, n = self.F, self.n
-        powz = F.powers(z_ch, self.ns)
-        powzw = F.powers(zw, self.ns)
+        powz = F.powers(z_ch, self.nsd)
+        powzw = F.powers(zw, self.nsd)
         # at z: a, b, c, d, sigma1..3, q_arith, q_c, q_l, q_r (11 polys)
         sel_idx = [SELECTOR_NAMES.index(k) for k in ("q_arith", "q_c", "q_l",
                                                 "q_r")]
-        at_z = torch.cat([wire_polys, self._pad_ns(self.sigma_polys[:3]),
-                          self._pad_ns(self.sel_polys[sel_idx])])
+        at_z = torch.cat([wire_polys, self._pad_nsd(self.sigma_polys[:3]),
+                          self._pad_nsd(self.sel_polys[sel_idx])])
         ev_z = F.dot(at_z, powz)                                 # (11, 16, 1)
         at_zw = torch.cat([wire_polys[[0, 1, 3]], z_poly[None]])
         ev_zw = F.dot(at_zw, powzw)                              # (4, 16, 1)
@@ -333,7 +379,7 @@ class TorchEngine:
         z2n = F.mul(zn, zn)
         z3n = F.mul(z2n, zn)
         w_ = torch.stack([F.const("one_mont", self.device), zn, z2n, z3n])
-        quot = F.sum_reduce(F.mul(chunks, w_), axis=0)           # (16, ns)
+        quot = F.sum_reduce(F.mul(chunks, w_), axis=0)           # (16, nsd)
         t_eval = F.dot(quot, powz)
         ev_all = torch.cat([ev_z, ev_zw, t_eval[None]])          # (16, 16, 1)
         return ev_all, quot, powz
@@ -341,10 +387,10 @@ class TorchEngine:
     def _rpoly(self, z_poly, lin_scalars, powz):
         F = self.F
         order_idx = [SELECTOR_NAMES.index(k) for k in LIN_ORDER[:10]]
-        srcs = torch.cat([self._pad_ns(self.sel_polys[order_idx]),
+        srcs = torch.cat([self._pad_nsd(self.sel_polys[order_idx]),
                           z_poly[None],
-                          self._pad_ns(self.sigma_polys[3:4])])  # (12, 16, ns)
-        r = F.sum_reduce(F.mul(srcs, lin_scalars), axis=0)      # (16, ns)
+                          self._pad_nsd(self.sigma_polys[3:4])])  # (12, 16, nsd)
+        r = F.sum_reduce(F.mul(srcs, lin_scalars), axis=0)      # (16, nsd)
         return r, F.dot(r, powz)
 
     def _divide_out(self, folded, point):
@@ -369,7 +415,7 @@ class TorchEngine:
     def _openings(self, quot, r_poly, wire_polys, z_poly, z_ch, zw, v1, v2):
         F = self.F
         group1 = torch.cat([quot[None], r_poly[None], wire_polys,
-                            self._pad_ns(self.sigma_polys[:3])])  # (9, 16, ns)
+                            self._pad_nsd(self.sigma_polys[:3])])  # (9, 16, nsd)
         w1 = F.powers(v1, 9).movedim(-1, 0)[..., None]          # (9, 16, 1)
         agg1 = self._divide_out(F.sum_reduce(F.mul(group1, w1), axis=0),
                                 z_ch)
@@ -417,7 +463,7 @@ class TorchEngine:
         z_poly, z_canon = self._round2(
             wire_vals, F.pack_scalar(beta, dev), F.pack_scalar(gamma, dev),
             blinders2)
-        z_comm = self._commit_batch(z_canon[None])[0]
+        z_comm = self._commit_batch(z_canon)[0]
         transcript.append_commitment(b"z", z_comm)
         mark("round2")
 
@@ -437,7 +483,7 @@ class TorchEngine:
                        var_base_sep=var_base_sep)
         ch = {k: F.pack_scalar(v, dev) for k, v in ch_host.items()}
         t_coeffs = self._round3_decomposed(wire_polys, z_poly, pi_dense, ch)
-        chunks, chunks_canon, tail_bad = self._round3c(t_coeffs)
+        chunks, chunks_canon, tail_bad = self._round3c(self._whole(t_coeffs))
         # the reference's error surfaces before any t commitment is absorbed
         if tail_bad:
             raise Error("polynomial degree exceeds SRS (unsatisfied circuit)")
@@ -450,6 +496,8 @@ class TorchEngine:
         # ---- rounds 4 + 5 --------------------------------------------------------
         z_challenge = transcript.challenge_scalar(b"z_challenge")
         zw = z_challenge * self.pk.domain.generator % R_MOD
+        # rounds 4 and 5 run whole on one device (a mesh gathers)
+        wire_polys, z_poly = self._whole(wire_polys), self._whole(z_poly)
         ev_all, quot, powz = self._evals(
             wire_polys, z_poly, chunks, F.pack_scalar(z_challenge, dev),
             F.pack_scalar(zw, dev))
@@ -495,6 +543,8 @@ class TorchEngine:
         mark("openings")
         self.last_timings = mark.times
         self.last_peaks = mark.peaks
+        for label, seconds in mark.times.items():
+            tracer.add_span("prove." + label, seconds)
 
         proof = Proof(
             a_comm=a_comm, b_comm=b_comm, c_comm=c_comm, d_comm=d_comm,

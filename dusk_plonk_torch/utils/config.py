@@ -2,13 +2,15 @@
 
 Only the knobs that still apply on a GPU are kept from
 dusk_plonk_tpu/utils/config.py, with its names: the MSM's window width,
-chunk length and working-set cap, the element-major scan and the
-four-step NTT.  The cap (`msm_group_slots`) keeps the JAX name and its
-role, with a default sized for an 80 GB card; its tile sizes, 14-bit
-switches, stacked twiddle limit, quotient chunking and mesh settings are
-TPU rules, and its off-TPU `ntt_mxu_force` has no counterpart (the route
-depends on the config alone; on CPU tensors every kernel runs its plain
-version).  One process-global config, read when a plan is built.
+chunk length and working-set cap, the element-major scan, the four-step
+NTT and the name of the mesh axis.  The cap (`msm_group_slots`) keeps the
+JAX name and its role, with a default sized for an 80 GB card.  Its tile
+sizes, 14-bit switches, stacked twiddle limit and quotient chunking are
+rules of the TPU build and have no counterpart here, nor its off-TPU
+`ntt_mxu_force` (the route depends on the config alone; on CPU tensors
+every kernel runs its plain version).  Of its mesh settings the axis name
+stays: the port's mesh (parallel/mesh.py) is one axis over a list of
+devices.  One process-global config, read when a plan is built.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ class TorchPlonkConfig:
                                         # (ops/mxu_ntt.py, kernel K13) for
                                         # domains 2^k with k >= this;
                                         # None = the K2 butterfly ladder
+    mesh_axis: str = "shard"            # the device mesh's one axis
+                                        # (parallel/mesh.py)
 
 
 _config = TorchPlonkConfig()

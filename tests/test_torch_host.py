@@ -1,7 +1,9 @@
 """The port's own host layer (fields, curves, transcript, RNG, composer, KZG,
 host prover and verifier, and the ctypes binding of native/): the port runs
-with jax and the JAX package both blocked, and its copied host modules give
-the JAX package's keys and proofs byte for byte."""
+with jax and the JAX package both blocked (its every module imported, a
+device proof and a sharded proof on a two-shard CPU mesh made and
+verified), and its copied host modules give the JAX package's keys and
+proofs byte for byte."""
 
 import os
 import subprocess
@@ -38,6 +40,15 @@ class BoolCircuit(Circuit):
 rng = ChaCha12Rng.seed_from_u64(8349)
 pp = PlonkParams.setup_device(4, rng, "cpu")
 prover, verifier = PlonkKey.compile_device(pp, BoolCircuit, device="cpu")
+proof, pis = prover.create_proof(rng, BoolCircuit(1))
+verifier.verify(proof, pis)
+import dusk_plonk_torch.parallel
+from dusk_plonk_torch.parallel.mesh import Mesh
+from dusk_plonk_torch.proving.sharded_engine import ShardedEngine
+eng = prover.engine
+prover.use_device_engine(ShardedEngine(
+    prover, mesh=Mesh(["cpu"] * 2), sel_polys=eng.sel_polys,
+    sigma_polys=eng.sigma_polys, srs=eng.srs, wire_plan=eng._wire_plan))
 proof, pis = prover.create_proof(rng, BoolCircuit(1))
 verifier.verify(proof, pis)
 loaded = [m for m, v in sys.modules.items() if v is not None
