@@ -19,7 +19,12 @@ Phases, one summary line each (more for kernels):
   4. full: bench.py's proof path at 2^16 constraints: PlonkParams.
      setup_device, PlonkKey.compile_device (per-step times, 16 SRS powers
      spot-checked against the host), one warm and two timed proofs, the
-     host verifier, and each kernel's launches on each path (> 0);
+     host verifier, and each kernel's launches on each path (> 0); then
+     a fourth proof's round-3 inputs, on which K14 (the quotient grid) is
+     held against its plain version limb for limb at the full (16, 2^19)
+     width (the plain chain's multiplies on K1) and on the grid's last
+     2^16 columns with the wraparound halo (K1's plain multiply), timed
+     through its wrapper and at its C entry;
   5. msm: bench.py's MSM metric, MsmPlan.msm_device on 2^16 seeded
      points, equal to the host C++ MSM, best of 3 in points/s;
   6. alt: the JAX package's switched-off configuration (ntt_mxu_min_k =
@@ -32,8 +37,10 @@ Phases, one summary line each (more for kernels):
      compile_device (the MSM in row groups under config.msm_group_slots),
      a warm and a timed proof verified on the host, per-step times and
      peak GiB, each kernel's launches by shape with device ms beside its
-     bound, and one 2^20 commitment equal under the default cap, under
-     one row a group and on the host C++ MSM;
+     bound, a third proof's round-3 inputs, on which K14 is held against
+     its plain version as in phase full at (16, 2^23), and one 2^20
+     commitment equal under the default cap, under one row a group and
+     on the host C++ MSM;
   8. sharded: the multi-device engine (proving/sharded_engine.py) on a
      one-process mesh whose D shards all live on cuda:0: phase small's
      mixed circuit at D = 2 and 8 and the n = 64 wide circuit at D = 8,
@@ -143,6 +150,9 @@ ADD_MULS, DBL_MULS = 12, 8
 # K13's wide Montgomery reduction by 2^272: eight 32-bit steps (m, then
 # m p over 8 words) and one 16-bit step
 REDUCE_PLANES = 8 * (1 + 8) + (1 + 8)
+# K14's Fr multiplies an element (csrc/quotient.cuh's count), and the
+# limb rows it reads an element (evs 6, sel 11, sig 4, l1, lin, vh_inv)
+QUOTIENT_MULS, QUOTIENT_ROWS = 93, 24
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 
 
@@ -268,7 +278,8 @@ PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
                "K10": "ec_add_mixed_kernelILi6E",
                "K11a": "ec_scan_mixed_kernel", "K12": "ec_scan_em_kernel",
                "K12 team 3": "ec_scan_em_team_kernelILi3E",
-               "K12 team 6": "ec_scan_em_team_kernelILi6E"}
+               "K12 team 6": "ec_scan_em_team_kernelILi6E",
+               "K14": "quotient_kernel"}
 
 
 def phase_env():
@@ -331,6 +342,31 @@ def add_mixed_entry(p, q2):
     def launch():
         _build.check(entry(*args), "ec_add_mixed")
     return launch, out
+
+
+def quotient_entry(args):
+    """(launch, out): as mont_mul_entry, K14's C entry point alone on the
+    wrapper's arguments (F, evs, halo, sel8, sig8, l1_8, lin8, vh_inv8,
+    consts)."""
+    import torch
+    from dusk_plonk_torch.ops import _build, kernels
+    evs, consts = args[1], args[-1]
+    out = torch.empty((16, evs.shape[-1]), dtype=torch.int32,
+                      device=evs.device)
+    entry = _build.lib().dt_quotient
+    call = (*(kernels._ptr(t) for t in args[1:]), kernels._ptr(out),
+            evs.shape[-1], consts.shape[-1], kernels._stream(out.device))
+
+    def launch():
+        _build.check(entry(*call), "quotient")
+    return launch, out
+
+
+def quotient_work(E, columns):
+    """(bytes, 32-bit multiplies) of K14 on E points: each input row and
+    the output once, the halo and the table once."""
+    return ((QUOTIENT_ROWS + 1) * 64 * E + 4 * 16 * 8 * 4
+            + 16 * columns * 4, E * QUOTIENT_MULS * FR_MUL)
 
 
 def phase_kernels(shapes):
@@ -930,9 +966,11 @@ def spot_check_srs(pp, tau, count, seed):
 # (4, 2^16) and two (1, 2^16) idfts two: 12 launches where the stage
 # kernel made 86.  The pre- and post-scales ride in those passes, so K1
 # lost its two launches a transform (798 - 10).
-LAUNCHES_PER_PROOF = {"mont_mul": 788, "ntt": 12, "ec_add": 4,
+# K14 took the quotient's multiplies: its 115 on the grid, its 13
+# challenge products and round 3's 7 challenge packs (788 - 135).
+LAUNCHES_PER_PROOF = {"mont_mul": 653, "ntt": 12, "ec_add": 4,
                       "ec_scan_mixed": 4, "ec_sum_steps": 8,
-                      "ec_scan_excl": 4, "ec_double_add": 4}
+                      "ec_scan_excl": 4, "ec_double_add": 4, "quotient": 1}
 
 
 # each kernel's C entry point, and from its arguments (as the wrappers of
@@ -992,6 +1030,8 @@ LAUNCH_CLASSES = {
     "reduce_planes": ("dt_reduce_planes", lambda a: (
         f"(rows={a[2]},65,n={a[3]})",
         (a[2] * a[3] * (65 + 16) * 4, a[2] * a[3] * REDUCE_PLANES))),
+    "quotient": ("dt_quotient", lambda a: (
+        f"E={a[9]}", quotient_work(a[9], a[10]))),
 }
 
 
@@ -1137,7 +1177,8 @@ def phase_full(k):
             "compile": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                         "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
             "proof": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
-                      "ec_sum_steps", "ec_scan_excl", "ec_double_add")}
+                      "ec_sum_steps", "ec_scan_excl", "ec_double_add",
+                      "quotient")}
     missing = [(path, name) for path, names in need.items()
                for name in names if counts[path][name] == 0]
     if missing:
@@ -1146,9 +1187,63 @@ def phase_full(k):
     moved = {name: counts["proof"][name] / 3
              for name, want in LAUNCHES_PER_PROOF.items()
              if counts["proof"][name] != 3 * want}
+
+    # a fourth proof, its K14 arguments kept
+    capture = ShapeCapture(("quotient",))
+    with capture:
+        proof, pis = prover.create_proof(rng, Bench(3))
+    verifier.verify(proof, pis)
+    (args,) = capture.kept.values()
+    k14 = check_quotient(args)
     if moved:
         raise AssertionError(f"launches a proof moved: {moved}")
-    return counts, (pp, prover, verifier)
+    return counts, (pp, prover, verifier), k14
+
+
+def check_quotient(args, phase="full", reps=20):
+    """K14 on one proof's round-3 arguments: against its plain version
+    limb for limb at the full width with K1 multiplies, and on the last
+    2^16 columns (the next gate wrapping to the coset's first 8) with
+    K1's plain multiply; the full-width time through the wrapper and at
+    the C entry (median of 5 x `reps` launches), the plain chain's time,
+    the bound, and the kernel's registers and spills, on `phase`'s line.
+    Returns its record for the kernels line."""
+    from dusk_plonk_torch.ops import _build, kernels
+    F, evs, halo = args[:3]
+    E = evs.shape[-1]
+    out = kernels.quotient(*args)
+    ref, plain_ms = cuda_once(lambda: kernels.quotient_plain(*args,
+                                                             mul=F.mul))
+    launch, raw = quotient_entry(args)
+    ms, runs = cuda_ms_runs(launch, reps)
+    wrapper_ms, wrapper_runs = cuda_ms_runs(lambda: kernels.quotient(*args),
+                                            reps)
+    err = max_abs_err((out, raw), (ref, ref))
+    m = 1 << 16
+    tail = (F, evs[..., -m:].contiguous(),
+            evs[[0, 1, 2, 4], :, :8].contiguous()) + tuple(
+                x[..., -m:].contiguous() for x in args[3:-1]) + args[-1:]
+    out_t = kernels.quotient(*tail)
+    ref_t, plain_tail_ms = cuda_once(lambda: kernels.quotient_plain(*tail))
+    err_tail = max_abs_err((out_t, out_t), (ref_t, out[..., -m:]))
+    bound_ms, bound_by = bound(*quotient_work(E, args[-1].shape[-1]),
+                               int_mul_rate())
+    ptxas = [v for k, v in ptxas_table(_build.BUILD_LOG).items()
+             if "quotient_kernel" in k]
+    rec = {"max_abs_err": max(err, err_tail), "case": f"(16,{E})",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    say(phase, kernel="quotient", case=rec["case"], max_abs_err=err,
+        ms=ms, ms_runs=runs, wrapper_ms=wrapper_ms,
+        wrapper_ms_runs=wrapper_runs, plain_ms=plain_ms,
+        plain_mul="K1", bound_ms=bound_ms, bound_by=bound_by,
+        muls_an_element=QUOTIENT_MULS, ptxas=ptxas,
+        tail_case=f"(16,{m}) wrapping", max_abs_err_tail=err_tail,
+        plain_tail_ms=plain_tail_ms, plain_tail_mul="K1 plain")
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"quotient: kernel != plain ({err}, tail "
+                             f"{err_tail})")
+    return rec
 
 
 def phase_msm(phase="msm", need=("ec_combine",)):
@@ -1333,7 +1428,8 @@ LARGE_NEED = {"setup": ("mont_mul", "ec_add"),
               "compile": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                           "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
               "proof": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
-                        "ec_sum_steps", "ec_scan_excl", "ec_double_add")}
+                        "ec_sum_steps", "ec_scan_excl", "ec_double_add",
+                        "quotient")}
 
 
 def phase_large(k):
@@ -1344,7 +1440,10 @@ def phase_large(k):
     MSM's row groups of each commit batch, and every kernel launch by
     kernel and shape class for setup, compile and the timed proof, each
     class with its device ms (CUDA events around each launch) and its
-    launches' summed bound.  Then key compilation's 15-commit batch in one
+    launches' summed bound.  Then a third proof whose K14 arguments are
+    kept and held against K14's plain version at (16, 2^(k+3))
+    (check_quotient, after the timed proof so that its time and peak
+    carry no copies).  Then key compilation's 15-commit batch in one
     row group, which must run out of device memory (the fault the cap
     repairs), and one 2^k commitment under the default cap and under a cap
     of one row a group, equal in affine form, and against the host C++
@@ -1423,6 +1522,16 @@ def phase_large(k):
         raise AssertionError(f"large: kernels never launched on their "
                              f"path: {missing}")
 
+    # K14 at the 2^20 proof's own shape and data
+    capture = ShapeCapture(("quotient",))
+    with capture:
+        proof, pis = prover.create_proof(rng, Bench(3))
+    verifier.verify(proof, pis)
+    (args,) = capture.kept.values()
+    k14 = check_quotient(args, "large", reps=2)
+    del args, capture
+    torch.cuda.empty_cache()
+
     # the fault the cap repairs: key compilation's batch of 15 commits (300
     # rows) in one group does not fit on the card
     Fr = fr_field()
@@ -1471,7 +1580,7 @@ def phase_large(k):
         equal_across_groups=True, host_msm_s=host_s, equal_to_host=True)
     del prover, verifier, engine, pp
     torch.cuda.empty_cache()
-    return counts
+    return counts, k14
 
 
 def wide_circuit():
@@ -1575,7 +1684,7 @@ def _plain_versions():
         "ec_scan_excl": lambda G1, g: kn.ec_scan_excl_plain(
             G1, g, kn._excl_block(g[0].shape[0])),
         "ec_double_add": kn.ec_double_add_plain,
-        "ec_combine": kn.ec_combine_plain}
+        "ec_combine": kn.ec_combine_plain, "quotient": kn.quotient_plain}
 
 
 class _KernelsProxy:
@@ -1592,23 +1701,26 @@ class _KernelsProxy:
 
 class ShapeCapture:
     """While active, keeps a copy of the arguments of the first call of
-    each kernel wrapper (`_plain_versions`) at each argument shape that no
-    earlier `check` has held: ops/limb.py, ops/ntt.py and ops/ec.py, the
-    modules that launch every kernel of a proof, see a proxy of `kernels`
-    in place of the module.  The wrappers and their launch counters are
+    each kernel wrapper (`_plain_versions`, or the `names` given) at each
+    argument shape that no earlier `check` has held: ops/limb.py,
+    ops/ntt.py, ops/ec.py and the two engines, the modules that launch
+    every kernel of a proof, see a proxy of `kernels` in place of the
+    module.  The wrappers and their launch counters are
     untouched.  `check(rate)` then runs each kernel on its kept arguments
     and holds the result against its plain version limb for limb: every
     kernel at every shape the captured path launched, on the path's own
     data."""
 
-    def __init__(self):
+    def __init__(self, names=None):
+        self.names = names or tuple(_plain_versions())
         self.kept, self.done, self.errs = {}, set(), {}
 
     def __enter__(self):
         from dusk_plonk_torch.ops import ec, kernels, limb, ntt
-        self._mods = (ec, limb, ntt)
+        from dusk_plonk_torch.proving import engine, sharded_engine
+        self._mods = (ec, limb, ntt, engine, sharded_engine)
         hooks = {}
-        for name in _plain_versions():
+        for name in self.names:
             def kept(*args, name=name, fn=getattr(kernels, name)):
                 key = (name, _arg_sig(args))
                 if key not in self.kept and key not in self.done:
@@ -1724,10 +1836,13 @@ def sharded_bench(k, key, d, ref, rate, capture):
         sorted(classes.items())})
     missing = [n for n in ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                            "ec_sum_steps", "ec_scan_excl", "ec_double_add",
-                           "ec_combine") if counts[n] == 0]
+                           "ec_combine", "quotient") if counts[n] == 0]
     if missing:
         raise AssertionError(f"sharded d={d}: never launched on the "
                              f"sharded proof path: {missing}")
+    if counts["quotient"] != 2 * d:
+        raise AssertionError(f"sharded d={d}: quotient launched "
+                             f"{counts['quotient'] / 2} times a proof")
     del engine
     torch.cuda.empty_cache()
     return {name: v // 2 for name, v in counts.items()}
@@ -1828,6 +1943,9 @@ SOURCES = {
                    f"{PR}:1277 (K8 ec_combine14)"),
     "reduce_planes": ("dusk_plonk_torch/csrc/reduce_planes.cu",
                       "dusk_plonk_tpu/ops/mxu_ntt.py:185 (K13)"),
+    "quotient": ("dusk_plonk_torch/csrc/quotient.cu",
+                 "dusk_plonk_tpu/proving/engine.py:465-524 (K14: the XLA "
+                 "fusion of round3b; no pallas_call site)"),
 }
 # the path whose launches each row reports: the default proofs, except
 # K8 (msm_device), K10 (the per-step scan route) and K12, K13 (the alt
@@ -1877,18 +1995,18 @@ def main():
         if name == "env":
             phase_env()
         elif name == "kernels":
-            results = phase_kernels(shapes)
+            results.update(phase_kernels(shapes))
         elif name == "small":
             phase_small()
         elif name == "full":
-            full_counts, full_key = phase_full(K)
+            full_counts, full_key, results["quotient"] = phase_full(K)
             counts.update(full_counts)
         elif name == "msm":
             counts["msm"] = phase_msm()[0]
         elif name == "alt":
             counts["alt"] = phase_alt(K)
         elif name == "large":
-            counts["large"] = phase_large(K_LARGE)
+            counts["large"], results["quotient_k20"] = phase_large(K_LARGE)
         elif name == "sharded":
             counts["sharded"], sharded_results = phase_sharded(K, full_key)
         walls[name] = time.perf_counter() - t0
@@ -1913,6 +2031,10 @@ def main():
                 "sharded", {}).get(d, {}).get(name)
         if name in sharded_results:
             row["max_abs_err_sharded_shapes"] = sharded_results[name]
+        if name == "quotient" and "quotient_k20" in results:
+            k20 = results["quotient_k20"]
+            row["max_abs_err_k20"] = k20["max_abs_err"]
+            row["case_k20"], row["ms_k20"] = k20["case"], k20["ms"]
         for key in ("max_abs_err_affine_vs_sequential",
                     "max_abs_err_vs_ladder"):
             if key in r:

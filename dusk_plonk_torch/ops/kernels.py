@@ -1,4 +1,4 @@
-"""The port's eleven hand-written CUDA kernels, each with its plain PyTorch
+"""The port's twelve hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
 | wrapper          | kernel (csrc/)        | replaces (dusk_plonk_tpu/ops/)     |
@@ -14,6 +14,9 @@ version and a launch counter.
 | ec_double_add    | K7  ec_double_add.cu  | ::ec_double_add14                  |
 | ec_combine       | K8  ec_combine.cu     | ::ec_combine14                     |
 | reduce_planes    | K13 reduce_planes.cu  | mxu_ntt.py::reduce_planes          |
+| quotient         | K14 quotient.cu       | no pallas_call site: the XLA       |
+|                  |                       | fusion of round3b, dusk_plonk_tpu/ |
+|                  |                       | proving/engine.py:465-524          |
 
 The JAX package's 14-bit kernels (R = 2^392, lazy 14-bit limbs) answer the
 TPU's missing 32x32->64 multiply; on Hopper one 32-bit-word engine gives
@@ -45,6 +48,7 @@ from functools import lru_cache
 
 import torch
 
+from ..fields.constants import JUBJUB_D, PERM_K1, PERM_K2, PERM_K3
 from . import _build
 
 MASK16 = 0xFFFF
@@ -85,7 +89,7 @@ def _ptr(t):
 def _wrappers():
     return (mont_mul, ntt, ec_add, ec_add_mixed, ec_scan_mixed,
             ec_scan_mixed_em, ec_sum_steps, ec_scan_excl, ec_double_add,
-            ec_combine, reduce_planes)
+            ec_combine, reduce_planes, quotient)
 
 
 def reset_launches() -> None:
@@ -867,6 +871,138 @@ def reduce_planes(F, planes):
                  _ptr(planes), _ptr(out), math.prod(planes.shape[:-2]), n)
     reduce_planes.launches += 1
     _build.check(rc, "reduce_planes")
+    return out
+
+
+# -- K14: the round-3 quotient grid ------------------------------------------------------
+
+# the columns of K14's constant table, csrc/quotient.cuh::QuotientColumn's
+# order: the challenges, their products (alpha^2; each separator's kappa
+# = sep^2 and its powers, as proving/widgets.py forms them), then the
+# widget formulas' constants by value
+QUOTIENT_TABLE = (
+    "alpha", "beta", "gamma", "range_sep", "logic_sep", "fixed_base_sep",
+    "var_base_sep", "alpha_sq",
+    "range_kappa", "range_kappa_sq", "range_kappa_cu",
+    "logic_kappa", "logic_kappa_sq", "logic_kappa_cu", "logic_kappa_qu",
+    "fixed_kappa", "fixed_kappa_sq", "fixed_kappa_cu",
+    "var_kappa", "var_kappa_sq",
+    1, 2, 3, 4, 9, 18, 81, 83, JUBJUB_D, PERM_K1, PERM_K2, PERM_K3)
+
+
+def quotient_consts(F, ch, device):
+    """K14's constant table (QUOTIENT_TABLE) from the challenges' ints
+    `ch`: alpha^2 and each separator's kappa = sep^2 and its powers,
+    computed once on the host as proving/widgets.py forms them, and the
+    formulas' constants, as one (16, C) Montgomery tensor."""
+    from ..proving import widgets
+    mul = widgets.HostOps.mul
+    vals = dict(ch, alpha_sq=mul(ch["alpha"], ch["alpha"]))
+    for fam, sep, top in (("range", "range_sep", 3), ("logic", "logic_sep", 4),
+                          ("fixed", "fixed_base_sep", 3),
+                          ("var", "var_base_sep", 2)):
+        kappa = power = mul(ch[sep], ch[sep])
+        for name in ("kappa", "kappa_sq", "kappa_cu", "kappa_qu")[:top]:
+            vals[f"{fam}_{name}"] = power
+            power = mul(power, kappa)
+    spec = F.spec
+    return F.pack([(vals[k] if isinstance(k, str) else k) * spec.mont_r
+                   % spec.modulus for k in QUOTIENT_TABLE],
+                  device, to_mont=False)
+
+
+class _TableOps:
+    """proving/widgets.py's backend for quotient_plain: LimbField's add and
+    sub, the given multiply, and each constant of the formulas read from
+    the table."""
+
+    def __init__(self, F, mul, col):
+        self.F, self._mul, self._col = F, mul, col
+
+    def add(self, a, b):
+        return self.F.add(a, b)
+
+    def sub(self, a, b):
+        return self.F.sub(a, b)
+
+    def mul(self, a, b):
+        return self._mul(a, b)
+
+    def scalar(self, v):
+        return self._col[v]
+
+
+def quotient_plain(F, evs, halo, sel8, sig8, l1_8, lin8, vh_inv8, consts,
+                   mul=None):
+    """K14's plain version: the widget chain of proving/widgets.py over
+    limb tensors, formula for formula, the next gate (i + 8) as a copy of
+    each row's columns past the eighth and the halo's eight, and every
+    challenge and constant from the table.  `mul` is the chain's
+    multiply (default K1's plain version, F.mul_plain; chip_smoke passes
+    F.mul, K1, to run the chain at full width)."""
+    from ..proving import widgets
+    from ..proving.keys import SELECTOR_NAMES
+    ch = {key: consts[:, j:j + 1] for j, key in enumerate(QUOTIENT_TABLE)}
+    ops = _TableOps(F, mul or F.mul_plain, ch)
+    z8, a8, b8, c8, d8, pi8 = evs
+    z_n, a_n, b_n, d_n = torch.cat([evs[[0, 1, 2, 4], :, 8:], halo], dim=-1)
+    s = dict(zip(SELECTOR_NAMES, sel8))
+
+    t = widgets.arithmetic_quotient(
+        ops, s["q_m"], s["q_l"], s["q_r"], s["q_o"], s["q_c"],
+        s["q_4"], s["q_arith"], a8, b8, c8, d8)
+    t = F.add(t, pi8)
+    t = F.add(t, widgets.range_quotient(
+        ops, s["q_range"], ch["range_sep"], a8, b8, c8, d8, d_n))
+    t = F.add(t, widgets.logic_quotient(
+        ops, s["q_logic"], s["q_c"], ch["logic_sep"],
+        a8, a_n, b8, b_n, c8, d8, d_n))
+    t = F.add(t, widgets.fixed_base_quotient(
+        ops, s["q_fixed_group_add"], s["q_l"], s["q_r"], s["q_c"],
+        ch["fixed_base_sep"], a8, a_n, b8, b_n, c8, d8, d_n))
+    t = F.add(t, widgets.variable_base_quotient(
+        ops, s["q_variable_group_add"], ch["var_base_sep"],
+        a8, a_n, b8, b_n, c8, d8, d_n))
+    l1_alpha_sq = ops.mul(l1_8, ch["alpha_sq"])
+    t = F.add(t, widgets.permutation_quotient(
+        ops, lin8, sig8[0], sig8[1], sig8[2], sig8[3], a8, b8, c8, d8,
+        z8, z_n, ch["alpha"], l1_alpha_sq, ch["beta"], ch["gamma"]))
+    return ops.mul(t, vh_inv8)
+
+
+def _check_quotient(F, evs, halo, sel8, sig8, l1_8, lin8, vh_inv8, consts):
+    E = evs.shape[-1]
+    want = {"evs": (6, 16, E), "halo": (4, 16, 8), "sel8": (11, 16, E),
+            "sig8": (4, 16, E), "l1_8": (16, E), "lin8": (16, E),
+            "vh_inv8": (16, E), "consts": (16, len(QUOTIENT_TABLE))}
+    got = dict(zip(want, (evs, halo, sel8, sig8, l1_8, lin8, vh_inv8,
+                          consts)))
+    _check_int32(*got.values())
+    bad = {k: tuple(t.shape) for k, t in got.items()
+           if tuple(t.shape) != want[k] or not t.is_contiguous()}
+    if F.L != 16 or E < 8 or bad:
+        raise ValueError(f"quotient: expected contiguous Fr {want} with "
+                         f"E >= 8, got {bad or E}")
+
+
+def quotient(F, evs, halo, sel8, sig8, l1_8, lin8, vh_inv8, consts):
+    """The quotient grid t(X) / Z_H(X) over E points of the 8n coset (or
+    one shard of it) -> (16, E) Montgomery limbs, one launch.  evs (6, 16,
+    E): the coset evaluations of z, a, b, c, d, pi; halo (4, 16, 8): z, a,
+    b, d at the 8 points after the last (on one device the first 8 of the
+    coset, on a shard M.next_halo's); sel8 (11, 16, E), sig8 (4, 16, E),
+    l1_8, lin8, vh_inv8 (16, E): the key's tables over those points;
+    consts (16, C): QUOTIENT_TABLE in Montgomery form."""
+    args = (evs, halo, sel8, sig8, l1_8, lin8, vh_inv8, consts)
+    _check_quotient(F, *args)
+    if _is_cpu(*args):
+        return quotient_plain(F, *args)
+    E = evs.shape[-1]
+    out = torch.empty((16, E), dtype=torch.int32, device=evs.device)
+    rc = _launch(_build.lib().dt_quotient, out, *(_ptr(t) for t in args),
+                 _ptr(out), E, consts.shape[-1])
+    quotient.launches += 1
+    _build.check(rc, "quotient")
     return out
 
 

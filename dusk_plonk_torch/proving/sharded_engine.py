@@ -12,10 +12,11 @@ domain, and the hot components run distributed:
   window totals summed over shards and combined on the device with K8
   (parallel/msm.py);
 * round 2's products and round 3's quotient grid run shard by shard on
-  the sharded tables; the quotient's next-gate wraparound (the
-  reference's 8-element append, src/prover/quotient_poly.rs:60-66) is
-  each shard's own tail plus `next_halo(x, 8)`, the boundary permute XLA
-  derives from `jnp.roll` in the JAX engine.
+  the sharded tables, the grid one K14 launch a shard; the quotient's
+  next-gate wraparound (the reference's 8-element append,
+  src/prover/quotient_poly.rs:60-66) reads each shard's own columns and,
+  past its end, `next_halo(x, 8)`, the boundary permute XLA derives from
+  `jnp.roll` in the JAX engine.
 
 Where the JAX engine leaves a step to GSPMD and the step is not
 elementwise (the evaluations at z, the linearisation polynomial,
@@ -47,7 +48,8 @@ from ..parallel.mesh import default_mesh
 from ..parallel.msm import ShardedMsm
 from ..parallel.ntt import dist_ntt_plan, distributed_ntt
 from ..parallel.prover_step import batch_inv_sharded, grand_product_sharded
-from .engine import TorchEngine, TorchOps
+from ..ops import kernels
+from .engine import TorchEngine
 
 
 class ShardedEngine(TorchEngine):
@@ -79,7 +81,6 @@ class ShardedEngine(TorchEngine):
                     "sigma_evals_n"):
             setattr(self, key, M.shard(mesh, getattr(self, key)))
         self.ks = M.broadcast(mesh, self.ks)
-        self.shard_ops = [TorchOps(self.F, d) for d in mesh.devices]
         # pad the SRS to the device width with generator points (always
         # zero coefficients: they add nothing to a commitment, and keep
         # every lane strictly affine for the mixed-add scan), then shard
@@ -163,24 +164,20 @@ class ShardedEngine(TorchEngine):
         buf = self._blind_into(z_poly, blinders, self.nsd)
         return buf, [F.from_mont(b[None]) for b in buf]
 
-    def _round3_decomposed(self, wire_polys, z_poly, pi_dense, ch):
+    def _round3_decomposed(self, wire_polys, z_poly, pi_dense, consts):
         mesh, n8 = self.mesh, self.n8
         pi_poly = self._t_n(pi_dense, "idft")
         rows = zip(M.relayout(mesh, [z[None] for z in z_poly], n8),
                    M.relayout(mesh, wire_polys, n8),
                    M.relayout(mesh, [p[None] for p in pi_poly], n8))
         evs = self._t_8n([torch.cat(r) for r in rows], "coset_dft")
-        # z, a, b, d at the next gate: roll(x, -8) over the whole coset
-        nxt_rows = [e[[0, 1, 2, 4]] for e in evs]
-        halos = M.next_halo(mesh, nxt_rows, 8)
-        chs = {k: M.broadcast(mesh, v) for k, v in ch.items()}
-        t = []
-        for j in M.axis_index(mesh):
-            nxt = torch.cat([nxt_rows[j][..., 8:], halos[j]], dim=-1)
-            tables = (self.sel8[j], self.sig8[j], self.l1_8[j],
-                      self.lin8[j], self.vh_inv8[j])
-            t.append(self._quotient(
-                self.shard_ops[j], tables, evs[j], tuple(nxt),
-                {k: v[j] for k, v in chs.items()}))
+        # z, a, b, d at the next gate, roll(x, -8) over the whole coset:
+        # past a shard's end, the next shard's first 8 points
+        halos = M.next_halo(mesh, [e[[0, 1, 2, 4], :, :8].contiguous()
+                                   for e in evs], 8)
+        cs = M.broadcast(mesh, consts)
+        t = [kernels.quotient(self.F, evs[j], halos[j].contiguous(),
+                              self.sel8[j], self.sig8[j], self.l1_8[j],
+                              self.lin8[j], self.vh_inv8[j], cs[j])
+             for j in M.axis_index(mesh)]
         return self._t_8n(t, "coset_idft")
-
