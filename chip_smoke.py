@@ -22,9 +22,10 @@ Phases, one summary line each (more for kernels):
      host verifier, and each kernel's launches on each path (> 0); then
      a fourth proof's round-3 inputs, on which K14 (the quotient grid) is
      held against its plain version limb for limb at the full (16, 2^19)
-     width (the plain chain's multiplies on K1) and on the grid's last
-     2^16 columns with the wraparound halo (K1's plain multiply), timed
-     through its wrapper and at its C entry;
+     width (the plain chain's multiplies on K1), on the grid's last
+     2^16 columns with the wraparound halo and on its first 32 and 1,000
+     columns (K1's plain multiply), timed through its wrapper and at its
+     C entry, with its registers and spills;
   5. msm: bench.py's MSM metric, MsmPlan.msm_device on 2^16 seeded
      points, equal to the host C++ MSM, best of 3 in points/s;
   6. alt: the JAX package's switched-off configuration (ntt_mxu_min_k =
@@ -150,9 +151,13 @@ ADD_MULS, DBL_MULS = 12, 8
 # K13's wide Montgomery reduction by 2^272: eight 32-bit steps (m, then
 # m p over 8 words) and one 16-bit step
 REDUCE_PLANES = 8 * (1 + 8) + (1 + 8)
-# K14's Fr multiplies an element (csrc/quotient.cuh's count), and the
-# limb rows it reads an element (evs 6, sel 11, sig 4, l1, lin, vh_inv)
-QUOTIENT_MULS, QUOTIENT_ROWS = 93, 24
+# K14's Fr multiplies an element (csrc/quotient.cuh's count: the small
+# constants' multiplies are adds), each quotient.cuh::fr_mont_mul's 8 rows
+# of 8 a b and 6 m r products (m, m r0 and m r1 are adds), and the limb
+# rows it reads an element (evs 6, sel 11, sig 4, l1, lin, vh_inv)
+QUOTIENT_MULS, FR_MUL_SHAPED, QUOTIENT_ROWS = 86, 8 * (8 + 6), 24
+# the one-thread design's count, 93 of FR_MUL, printed beside the bound
+QUOTIENT_MULS_ONE_THREAD = 93
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 
 
@@ -279,7 +284,7 @@ PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
                "K11a": "ec_scan_mixed_kernel", "K12": "ec_scan_em_kernel",
                "K12 team 3": "ec_scan_em_team_kernelILi3E",
                "K12 team 6": "ec_scan_em_team_kernelILi6E",
-               "K14": "quotient_kernel"}
+               "K14": "quotient_groups_kernel"}
 
 
 def phase_env():
@@ -362,11 +367,11 @@ def quotient_entry(args):
     return launch, out
 
 
-def quotient_work(E, columns):
-    """(bytes, 32-bit multiplies) of K14 on E points: each input row and
-    the output once, the halo and the table once."""
+def quotient_work(E, columns, muls=QUOTIENT_MULS * FR_MUL_SHAPED):
+    """(bytes, 32-bit multiplies) of K14 on E points, `muls` a point:
+    each input row and the output once, the halo and the table once."""
     return ((QUOTIENT_ROWS + 1) * 64 * E + 4 * 16 * 8 * 4
-            + 16 * columns * 4, E * QUOTIENT_MULS * FR_MUL)
+            + 16 * columns * 4, E * muls)
 
 
 def phase_kernels(shapes):
@@ -1202,12 +1207,14 @@ def phase_full(k):
 
 def check_quotient(args, phase="full", reps=20):
     """K14 on one proof's round-3 arguments: against its plain version
-    limb for limb at the full width with K1 multiplies, and on the last
-    2^16 columns (the next gate wrapping to the coset's first 8) with
-    K1's plain multiply; the full-width time through the wrapper and at
-    the C entry (median of 5 x `reps` launches), the plain chain's time,
-    the bound, and the kernel's registers and spills, on `phase`'s line.
-    Returns its record for the kernels line."""
+    limb for limb at the full width with K1 multiplies, on the last 2^16
+    columns (the next gate wrapping to the coset's first 8) with K1's
+    plain multiply, and on the first 32 and the first 1,000 columns (the
+    smallest shard, and a ragged edge: 1,000 is no multiple of a block's
+    32 points) with their next 8 as the halo; the full-width time through
+    the wrapper and at the C entry (median of 5 x `reps` launches), the
+    plain chain's time, the bound, and the kernel's registers and spills,
+    on `phase`'s line.  Returns its record for the kernels line."""
     from dusk_plonk_torch.ops import _build, kernels
     F, evs, halo = args[:3]
     E = evs.shape[-1]
@@ -1226,23 +1233,43 @@ def check_quotient(args, phase="full", reps=20):
     out_t = kernels.quotient(*tail)
     ref_t, plain_tail_ms = cuda_once(lambda: kernels.quotient_plain(*tail))
     err_tail = max_abs_err((out_t, out_t), (ref_t, out[..., -m:]))
+    err_head = {}
+    for e in (32, 1000):
+        head = (F, evs[..., :e].contiguous(),
+                evs[[0, 1, 2, 4], :, e:e + 8].contiguous()) + tuple(
+                    x[..., :e].contiguous() for x in args[3:-1]) + args[-1:]
+        out_h = kernels.quotient(*head)
+        err_head[e] = max_abs_err((out_h, out_h),
+                                  (kernels.quotient_plain(*head),
+                                   out[..., :e]))
     bound_ms, bound_by = bound(*quotient_work(E, args[-1].shape[-1]),
                                int_mul_rate())
+    # the bound under the one-thread design's count, for comparison
+    one_thread_ms, _ = bound(*quotient_work(
+        E, args[-1].shape[-1], QUOTIENT_MULS_ONE_THREAD * FR_MUL),
+        int_mul_rate())
     ptxas = [v for k, v in ptxas_table(_build.BUILD_LOG).items()
-             if "quotient_kernel" in k]
-    rec = {"max_abs_err": max(err, err_tail), "case": f"(16,{E})",
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+             if PTXAS_FOCUS["K14"] in k]
+    if not ptxas:
+        raise AssertionError("quotient: no ptxas line for "
+                             f"{PTXAS_FOCUS['K14']}")
+    rec = {"max_abs_err": max(err, err_tail, *err_head.values()),
+           "case": f"(16,{E})", "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
     say(phase, kernel="quotient", case=rec["case"], max_abs_err=err,
         ms=ms, ms_runs=runs, wrapper_ms=wrapper_ms,
         wrapper_ms_runs=wrapper_runs, plain_ms=plain_ms,
         plain_mul="K1", bound_ms=bound_ms, bound_by=bound_by,
-        muls_an_element=QUOTIENT_MULS, ptxas=ptxas,
-        tail_case=f"(16,{m}) wrapping", max_abs_err_tail=err_tail,
-        plain_tail_ms=plain_tail_ms, plain_tail_mul="K1 plain")
+        muls_an_element=QUOTIENT_MULS, products_a_mul=FR_MUL_SHAPED,
+        bound_ms_one_thread_count=one_thread_ms,
+        ptxas=ptxas, tail_case=f"(16,{m}) wrapping",
+        max_abs_err_tail=err_tail, plain_tail_ms=plain_tail_ms,
+        plain_tail_mul="K1 plain",
+        max_abs_err_first_columns={f"(16,{e})": v
+                                   for e, v in err_head.items()})
     if rec["max_abs_err"] != 0:
         raise AssertionError(f"quotient: kernel != plain ({err}, tail "
-                             f"{err_tail})")
+                             f"{err_tail}, first columns {err_head})")
     return rec
 
 
