@@ -25,7 +25,10 @@ Phases, one summary line each (more for kernels):
      width (the plain chain's multiplies on K1), on the grid's last
      2^16 columns with the wraparound halo and on its first 32 and 1,000
      columns (K1's plain multiply), timed through its wrapper and at its
-     C entry, with its registers and spills;
+     C entry, with its registers and spills; and the same proof's
+     witness table and wire plan, on which K15 (the wire gather) is held
+     against its plain version limb for limb at (4, 2^16), timed through
+     its wrapper and at its C entry beside its bound;
   5. msm: bench.py's MSM metric, MsmPlan.msm_device on 2^16 seeded
      points, equal to the host C++ MSM, best of 3 in points/s;
   6. alt: the JAX package's switched-off configuration (ntt_mxu_min_k =
@@ -39,7 +42,8 @@ Phases, one summary line each (more for kernels):
      a warm and a timed proof verified on the host, per-step times and
      peak GiB, each kernel's launches by shape with device ms beside its
      bound, a third proof's round-3 inputs, on which K14 is held against
-     its plain version as in phase full at (16, 2^23), and one 2^20
+     its plain version as in phase full at (16, 2^23), and K15 on the
+     same proof's table at (4, 2^20), and one 2^20
      commitment equal under the default cap, under one row a group and
      on the host C++ MSM;
   8. sharded: the multi-device engine (proving/sharded_engine.py) on a
@@ -284,7 +288,8 @@ PTXAS_FOCUS = {"K1 Fr <8>": "mont_mul_kernelILi8", "K1 Fq <12>":
                "K11a": "ec_scan_mixed_kernel", "K12": "ec_scan_em_kernel",
                "K12 team 3": "ec_scan_em_team_kernelILi3E",
                "K12 team 6": "ec_scan_em_team_kernelILi6E",
-               "K14": "quotient_groups_kernel"}
+               "K14": "quotient_groups_kernel",
+               "K15": "wire_gather_kernel"}
 
 
 def phase_env():
@@ -365,6 +370,30 @@ def quotient_entry(args):
     def launch():
         _build.check(entry(*call), "quotient")
     return launch, out
+
+
+def wire_gather_entry(args):
+    """(launch, out): as mont_mul_entry, K15's C entry point alone on the
+    wrapper's arguments (F, table, cols)."""
+    import torch
+    from dusk_plonk_torch.ops import _build, kernels
+    _, table, cols = args
+    W, n = cols.shape
+    out = torch.empty((W, 16, n), dtype=torch.int32, device=cols.device)
+    entry = _build.lib().dt_wire_gather
+    call = (kernels._ptr(table), kernels._ptr(cols), kernels._ptr(out), W,
+            n, kernels._stream(out.device))
+
+    def launch():
+        _build.check(entry(*call), "wire_gather")
+    return launch, out
+
+
+def wire_gather_work(W, n):
+    """(bytes, 32-bit multiplies) of K15 on W wires of n points: a
+    (wire, point) reads its index and its 32-byte row and writes 16 limb
+    planes, and multiplies once."""
+    return W * n * (4 + 32 + 64), W * n * FR_MUL
 
 
 def quotient_work(E, columns, muls=QUOTIENT_MULS * FR_MUL_SHAPED):
@@ -972,10 +1001,12 @@ def spot_check_srs(pp, tau, count, seed):
 # kernel made 86.  The pre- and post-scales ride in those passes, so K1
 # lost its two launches a transform (798 - 10).
 # K14 took the quotient's multiplies: its 115 on the grid, its 13
-# challenge products and round 3's 7 challenge packs (788 - 135).
-LAUNCHES_PER_PROOF = {"mont_mul": 653, "ntt": 12, "ec_add": 4,
+# challenge products and round 3's 7 challenge packs (788 - 135).  K15
+# took the wire columns' multiply by R^2 (653 - 1).
+LAUNCHES_PER_PROOF = {"mont_mul": 652, "ntt": 12, "ec_add": 4,
                       "ec_scan_mixed": 4, "ec_sum_steps": 8,
-                      "ec_scan_excl": 4, "ec_double_add": 4, "quotient": 1}
+                      "ec_scan_excl": 4, "ec_double_add": 4, "quotient": 1,
+                      "wire_gather": 1}
 
 
 # each kernel's C entry point, and from its arguments (as the wrappers of
@@ -1037,6 +1068,8 @@ LAUNCH_CLASSES = {
         (a[2] * a[3] * (65 + 16) * 4, a[2] * a[3] * REDUCE_PLANES))),
     "quotient": ("dt_quotient", lambda a: (
         f"E={a[9]}", quotient_work(a[9], a[10]))),
+    "wire_gather": ("dt_wire_gather", lambda a: (
+        f"(W={a[3]},n={a[4]})", wire_gather_work(a[3], a[4]))),
 }
 
 
@@ -1183,7 +1216,7 @@ def phase_full(k):
                         "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
             "proof": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                       "ec_sum_steps", "ec_scan_excl", "ec_double_add",
-                      "quotient")}
+                      "quotient", "wire_gather")}
     missing = [(path, name) for path, names in need.items()
                for name in names if counts[path][name] == 0]
     if missing:
@@ -1193,16 +1226,50 @@ def phase_full(k):
              for name, want in LAUNCHES_PER_PROOF.items()
              if counts["proof"][name] != 3 * want}
 
-    # a fourth proof, its K14 arguments kept
-    capture = ShapeCapture(("quotient",))
+    # a fourth proof, its K14 and K15 arguments kept
+    capture = ShapeCapture(("quotient", "wire_gather"))
     with capture:
         proof, pis = prover.create_proof(rng, Bench(3))
     verifier.verify(proof, pis)
-    (args,) = capture.kept.values()
-    k14 = check_quotient(args)
+    kept = {key[0]: args for key, args in capture.kept.items()}
+    k14 = check_quotient(kept["quotient"])
+    k15 = check_wire_gather(kept["wire_gather"])
     if moved:
         raise AssertionError(f"launches a proof moved: {moved}")
-    return counts, (pp, prover, verifier), k14
+    return counts, (pp, prover, verifier), k14, k15
+
+
+def check_wire_gather(args, phase="full", reps=20):
+    """K15 on one proof's witness table and wire plan: against its plain
+    version limb for limb, through the wrapper and at the C entry; both
+    times (median of 5 x `reps` launches), the plain version's time, the
+    bound, and the kernel's registers and spills, on `phase`'s line.
+    Returns its record for the kernels line."""
+    from dusk_plonk_torch.ops import _build, kernels
+    _, table, cols = args
+    out = kernels.wire_gather(*args)
+    ref, plain_ms = cuda_once(lambda: kernels.wire_gather_plain(*args))
+    launch, raw = wire_gather_entry(args)
+    ms, runs = cuda_ms_runs(launch, reps)
+    wrapper_ms, wrapper_runs = cuda_ms_runs(
+        lambda: kernels.wire_gather(*args), reps)
+    err = max_abs_err((out, raw), (ref, ref))
+    bound_ms, bound_by = bound(*wire_gather_work(*cols.shape),
+                               int_mul_rate())
+    ptxas = [v for k, v in ptxas_table(_build.BUILD_LOG).items()
+             if PTXAS_FOCUS["K15"] in k]
+    rows = table.shape[0]
+    rec = {"max_abs_err": err, "case": f"(W={cols.shape[0]},"
+           f"n={cols.shape[1]})", "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    say(phase, kernel="wire_gather", case=rec["case"], table_rows=rows,
+        zero_row_reads=int((cols == rows - 1).sum()), max_abs_err=err,
+        ms=ms, ms_runs=runs, wrapper_ms=wrapper_ms,
+        wrapper_ms_runs=wrapper_runs, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, ptxas=ptxas)
+    if err != 0:
+        raise AssertionError(f"wire_gather: kernel != plain ({err})")
+    return rec
 
 
 def check_quotient(args, phase="full", reps=20):
@@ -1456,7 +1523,7 @@ LARGE_NEED = {"setup": ("mont_mul", "ec_add"),
                           "ec_sum_steps", "ec_scan_excl", "ec_double_add"),
               "proof": ("mont_mul", "ntt", "ec_add", "ec_scan_mixed",
                         "ec_sum_steps", "ec_scan_excl", "ec_double_add",
-                        "quotient")}
+                        "quotient", "wire_gather")}
 
 
 def phase_large(k):
@@ -1549,14 +1616,16 @@ def phase_large(k):
         raise AssertionError(f"large: kernels never launched on their "
                              f"path: {missing}")
 
-    # K14 at the 2^20 proof's own shape and data
-    capture = ShapeCapture(("quotient",))
+    # K14 and K15 at the 2^20 proof's own shapes and data
+    capture = ShapeCapture(("quotient", "wire_gather"))
     with capture:
         proof, pis = prover.create_proof(rng, Bench(3))
     verifier.verify(proof, pis)
-    (args,) = capture.kept.values()
-    k14 = check_quotient(args, "large", reps=2)
-    del args, capture
+    kept = {key[0]: args for key, args in capture.kept.items()}
+    del capture
+    k14 = check_quotient(kept.pop("quotient"), "large", reps=2)
+    torch.cuda.empty_cache()
+    k15 = check_wire_gather(kept.pop("wire_gather"), "large", reps=5)
     torch.cuda.empty_cache()
 
     # the fault the cap repairs: key compilation's batch of 15 commits (300
@@ -1607,7 +1676,7 @@ def phase_large(k):
         equal_across_groups=True, host_msm_s=host_s, equal_to_host=True)
     del prover, verifier, engine, pp
     torch.cuda.empty_cache()
-    return counts, k14
+    return counts, k14, k15
 
 
 def wide_circuit():
@@ -1711,7 +1780,8 @@ def _plain_versions():
         "ec_scan_excl": lambda G1, g: kn.ec_scan_excl_plain(
             G1, g, kn._excl_block(g[0].shape[0])),
         "ec_double_add": kn.ec_double_add_plain,
-        "ec_combine": kn.ec_combine_plain, "quotient": kn.quotient_plain}
+        "ec_combine": kn.ec_combine_plain, "quotient": kn.quotient_plain,
+        "wire_gather": kn.wire_gather_plain}
 
 
 class _KernelsProxy:
@@ -1973,6 +2043,9 @@ SOURCES = {
     "quotient": ("dusk_plonk_torch/csrc/quotient.cu",
                  "dusk_plonk_tpu/proving/engine.py:465-524 (K14: the XLA "
                  "fusion of round3b; no pallas_call site)"),
+    "wire_gather": ("dusk_plonk_torch/csrc/wire_gather.cu",
+                    "no TPU kernel: the host's numpy gather, "
+                    "dusk_plonk_tpu/proving/engine.py:190-194 (K15)"),
 }
 # the path whose launches each row reports: the default proofs, except
 # K8 (msm_device), K10 (the per-step scan route) and K12, K13 (the alt
@@ -2026,14 +2099,16 @@ def main():
         elif name == "small":
             phase_small()
         elif name == "full":
-            full_counts, full_key, results["quotient"] = phase_full(K)
+            full_counts, full_key, results["quotient"], \
+                results["wire_gather"] = phase_full(K)
             counts.update(full_counts)
         elif name == "msm":
             counts["msm"] = phase_msm()[0]
         elif name == "alt":
             counts["alt"] = phase_alt(K)
         elif name == "large":
-            counts["large"], results["quotient_k20"] = phase_large(K_LARGE)
+            counts["large"], results["quotient_k20"], \
+                results["wire_gather_k20"] = phase_large(K_LARGE)
         elif name == "sharded":
             counts["sharded"], sharded_results = phase_sharded(K, full_key)
         walls[name] = time.perf_counter() - t0
@@ -2058,8 +2133,8 @@ def main():
                 "sharded", {}).get(d, {}).get(name)
         if name in sharded_results:
             row["max_abs_err_sharded_shapes"] = sharded_results[name]
-        if name == "quotient" and "quotient_k20" in results:
-            k20 = results["quotient_k20"]
+        if f"{name}_k20" in results:
+            k20 = results[f"{name}_k20"]
             row["max_abs_err_k20"] = k20["max_abs_err"]
             row["case_k20"], row["ms_k20"] = k20["case"], k20["ms"]
         for key in ("max_abs_err_affine_vs_sequential",

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "dt_ec_double_add": [_P] * 9 + [_I, _I64, _P],
     "dt_ec_combine": [_P] * 6 + [_I, _I, _I64, _P],
     "dt_quotient": [_P] * 9 + [_I64, _I64, _P],
+    "dt_wire_gather": [_P, _P, _P, _I64, _I64, _P],
 }
 
 _lib = None

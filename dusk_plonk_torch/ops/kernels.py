@@ -1,4 +1,4 @@
-"""The port's twelve hand-written CUDA kernels, each with its plain PyTorch
+"""The port's thirteen hand-written CUDA kernels, each with its plain PyTorch
 version and a launch counter.
 
 | wrapper          | kernel (csrc/)        | replaces (dusk_plonk_tpu/ops/)     |
@@ -17,6 +17,9 @@ version and a launch counter.
 | quotient         | K14 quotient.cu       | no pallas_call site: the XLA       |
 |                  |                       | fusion of round3b, dusk_plonk_tpu/ |
 |                  |                       | proving/engine.py:465-524          |
+| wire_gather      | K15 wire_gather.cu    | no TPU kernel: the host's numpy    |
+|                  |                       | gather, dusk_plonk_tpu/proving/    |
+|                  |                       | engine.py:190-194                  |
 
 The JAX package's 14-bit kernels (R = 2^392, lazy 14-bit limbs) answer the
 TPU's missing 32x32->64 multiply; on Hopper one 32-bit-word engine gives
@@ -89,7 +92,7 @@ def _ptr(t):
 def _wrappers():
     return (mont_mul, ntt, ec_add, ec_add_mixed, ec_scan_mixed,
             ec_scan_mixed_em, ec_sum_steps, ec_scan_excl, ec_double_add,
-            ec_combine, reduce_planes, quotient)
+            ec_combine, reduce_planes, quotient, wire_gather)
 
 
 def reset_launches() -> None:
@@ -1003,6 +1006,40 @@ def quotient(F, evs, halo, sel8, sig8, l1_8, lin8, vh_inv8, consts):
                  _ptr(out), E, consts.shape[-1])
     quotient.launches += 1
     _build.check(rc, "quotient")
+    return out
+
+
+# -- K15: the wire gather ------------------------------------------------------------
+
+def wire_gather_plain(F, table, cols):
+    """K15's plain version: rows of the witness table indexed by cols in
+    torch, split into 16-bit limbs, then K1's plain multiply by R^2."""
+    words = table[cols.long()]                               # (W, n, 8)
+    limbs = torch.stack([words & MASK16, (words >> 16) & MASK16], dim=-1)
+    canon = limbs.reshape(cols.shape + (16,)).movedim(-1, -2)
+    return mont_mul_plain(F, canon, F.const("r2", table.device)).contiguous()
+
+
+def wire_gather(F, table, cols):
+    """A proof's wire columns -> (W, 16, n) Fr Montgomery limbs, one
+    launch.  table (rows, 8) int32: each row a canonical witness value's
+    eight 32-bit words, least significant first; cols (W, n) int32: the
+    row of each (wire, point), every one in [0, rows)."""
+    _check_int32(table, cols)
+    if F.L != 16 or table.dim() != 2 or table.shape[-1] != 8 \
+            or cols.dim() != 2 or not table.is_contiguous() \
+            or not cols.is_contiguous():
+        raise ValueError(f"wire_gather: expected contiguous Fr (rows, 8) "
+                         f"and (W, n), got {tuple(table.shape)} and "
+                         f"{tuple(cols.shape)}")
+    if _is_cpu(table, cols):
+        return wire_gather_plain(F, table, cols)
+    W, n = cols.shape
+    out = torch.empty((W, 16, n), dtype=torch.int32, device=cols.device)
+    rc = _launch(_build.lib().dt_wire_gather, out, _ptr(table), _ptr(cols),
+                 _ptr(out), W, n)
+    wire_gather.launches += 1
+    _build.check(rc, "wire_gather")
     return out
 
 

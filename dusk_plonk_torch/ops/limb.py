@@ -119,15 +119,19 @@ class LimbField:
         return self.pack([value], device, to_mont)
 
     def pack_sparse(self, pairs, n: int, device, to_mont: bool = True):
-        """[(index, value)] -> (L, n) limbs, zeros elsewhere; the
-        Montgomery conversion runs on the host per entry."""
-        spec = self.spec
-        arr = np.zeros((n, self.L), np.int32)
-        for i, v in pairs:
-            if to_mont:
-                v = v * spec.mont_r % spec.modulus
-            arr[i] = int_to_limbs(spec, v)
-        return torch.from_numpy(np.ascontiguousarray(arr.T)).to(device)
+        """[(index, value)], distinct indexes -> (L, n) limbs on `device`,
+        zeros elsewhere: a device fill, then one index-put from one tensor
+        of the pairs; the Montgomery conversion runs on the host per
+        entry."""
+        out = torch.zeros((self.L, n), dtype=torch.int32, device=device)
+        if pairs:
+            spec = self.spec
+            rows = np.array([[i] + list(int_to_limbs(
+                spec, v * spec.mont_r % spec.modulus if to_mont else v))
+                for i, v in pairs], np.int64)                # (P, 1 + L)
+            t = torch.from_numpy(rows).to(device)
+            out[:, t[:, 0]] = t[:, 1:].T.to(torch.int32)
+        return out
 
     def unpack(self, arr, from_mont: bool = True) -> list[int]:
         """(..., L, N) limbs -> flat list of canonical Python ints."""

@@ -6,12 +6,15 @@ same rounds, transcript labels and RNG draw order as the host oracle
 (proving/prover.py::Prover._create_proof_host), so its proofs are
 byte-identical to the host's.  What runs where:
 
-* device: every NTT (ops/ntt.py), the 8n quotient grid (one launch of
-  kernel K14, ops/kernels.py::quotient, the widget formulas of
-  proving/widgets.py fused), the grand product, batch inversion,
-  evaluations, the KZG synthetic division, and every MSM (ops/msm.py);
-* host: transcript and challenges, blinder draws, the 16 linearization
-  scalars, and the window combine of each commitment (C++).
+* device: the wire columns (one launch of kernel K15, ops/kernels.py::
+  wire_gather, from the witness table sent once a proof), every NTT
+  (ops/ntt.py), the 8n quotient grid (one launch of kernel K14,
+  ops/kernels.py::quotient, the widget formulas of proving/widgets.py
+  fused), the grand product, batch inversion, evaluations, the KZG
+  synthetic division, and every MSM (ops/msm.py);
+* host: witness synthesis, transcript and challenges, blinder draws, the
+  16 linearization scalars, and the window combine of each commitment
+  (C++).
 
 Round 3 runs unchunked (E = n8): the coset transforms, then the quotient
 grid in one K14 launch, the counterpart of the XLA fusion of the JAX
@@ -107,10 +110,13 @@ class TorchEngine:
         self.sigma_polys = as_limbs(sigma_polys, device)
 
         # wire-index columns are circuit SHAPE, fixed at compile: per-proof
-        # synthesis runs witness-only and wire packing is one numpy gather
+        # synthesis runs witness-only, sends the witness table once, and
+        # K15 gathers the wire columns from it on the device
         self._wire_plan = wire_plan
         self._build_tables()
         self._stage_tables()
+        if wire_plan is not None:
+            self._stage_wire_plan()
 
     # -- fast witness synthesis -----------------------------------------------
 
@@ -124,15 +130,34 @@ class TorchEngine:
             cols[j, :len(col)] = col
         return cols, nw, cs.m()
 
+    def _stage_wire_plan(self):
+        """The wire plan's cols (4, n) on the device as int32, and the
+        witness table's two (nw + 1, 8) int32 buffers: a pinned host buffer
+        that synthesis fills and the device table it is sent to, row nw
+        the zero row.  Made once, after the engine's tables, so that they
+        add nothing to the build's peak."""
+        cols, nw, _ = self._wire_plan
+        cols = np.asarray(cols)
+        if cols.shape != (4, self.n) or cols.min() < 0 or cols.max() > nw:
+            raise ValueError(f"wire plan: cols {cols.shape} must be (4, "
+                             f"{self.n}) rows of 0..{nw}")
+        dev = self.device
+        self._wire_cols = torch.from_numpy(cols.astype(np.int32)).to(dev)
+        self._wit_host = torch.zeros((nw + 1, 8), dtype=torch.int32,
+                                     pin_memory=dev.type == "cuda")
+        self._wit_table = torch.empty((nw + 1, 8), dtype=torch.int32,
+                                      device=dev)
+
     def _synthesize_fast(self, circuit):
-        """Witness-only synthesis + numpy wire packing -> (cs, wires):
-        wires (4, 16, n) int32 canonical limbs."""
+        """Witness-only synthesis -> cs, with the witness sent to the
+        device table (self._wit_table: 32 bytes a witness, canonical)."""
         cs = FastPlonk.initialize()
         circuit.synthesize(cs)
         if self._wire_plan is None:
             full = Plonk.initialize()
             circuit.synthesize(full)
             self._wire_plan = self.build_wire_plan(full, self.n)
+            self._stage_wire_plan()
         cols, nw, m = self._wire_plan
         if len(cs.witness) != nw or cs.m() != m:
             raise Error(
@@ -140,9 +165,12 @@ class TorchEngine:
                 f"{len(cs.witness)} witnesses / {cs.m()} gates vs "
                 f"compiled {nw} / {m}")
         buf = b"".join(v.to_bytes(32, "little") for v in cs.witness)
-        wit = np.frombuffer(buf + bytes(32), dtype="<u2").reshape(nw + 1, 16)
-        wires = np.moveaxis(wit[cols], -1, 1).astype(np.int32)  # (4, 16, n)
-        return cs, np.ascontiguousarray(wires)
+        # the pinned buffer is free to refill: the marks that follow this
+        # copy synchronise the device before the next proof's synthesis
+        self._wit_host.numpy()[:nw] = np.frombuffer(buf, "<i4").reshape(
+            nw, 8)
+        self._wit_table.copy_(self._wit_host, non_blocking=True)
+        return cs
 
     # -- hooks (the seams of the sharded engine) ------------------------------
 
@@ -374,7 +402,7 @@ class TorchEngine:
         F, n, dev = self.F, self.n, self.device
         mark = Marks(dev)
 
-        cs, wires = self._synthesize_fast(circuit)
+        cs = self._synthesize_fast(circuit)
         mark("synthesize")
 
         transcript = prover.transcript.clone()
@@ -386,8 +414,8 @@ class TorchEngine:
             list(zip(pi_indexes, public_inputs)), n, dev))
 
         # ---- round 1 -----------------------------------------------------------
-        wire_vals = self._stage_dom(F.mul(torch.from_numpy(wires).to(dev),
-                                          F.const("r2", dev)))
+        wire_vals = self._stage_dom(kernels.wire_gather(
+            F, self._wit_table, self._wire_cols))
         mark("wire_pack")
         blinders1 = F.pack([fr_random(rng) for _ in range(4 * 2)], dev,
                            shape=(4, 2))
